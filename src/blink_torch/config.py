@@ -1,9 +1,10 @@
 """Config system: the same frozen dataclasses and presets as `blink.config`,
 so a config JSON written by either package loads in the other.
 
-Backends of the port: `auto | wide` (`pallas` is accepted as an alias of
-`wide`, the name `blink` gives the same traversal). `auto` resolves to
-`wide` whenever the scene has triangles (kernels.api.make_backend).
+Backends of the port: `auto | brute | wide` (`pallas` is accepted as an
+alias of `wide`, the name `blink` gives the same traversal). `auto`
+resolves to `brute` at 64 triangles or fewer, else to `wide`
+(kernels.api.make_backend).
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ class RenderConfig:
     spp: int = 1
     max_depth: int = 4
     integrator: str = "direct"  # primary | direct | path
-    backend: str = "auto"  # auto | wide (alias: pallas)
+    backend: str = "auto"  # auto | brute | wide (alias: pallas)
     seed: int = 0
     jitter: bool = True
     # Deterministic sampling: center-pixel rays + fixed-point light samples
@@ -53,7 +54,8 @@ class RenderConfig:
 
 @dataclasses.dataclass(frozen=True)
 class FitConfig:
-    """Inverse-rendering loop config (the fitting slice is not ported yet)."""
+    """Inverse-rendering loop config (config 3). Checkpoints and tensorboard
+    (ckpt_path, tb_dir) wait for the tooling slice: api.fit raises on them."""
 
     steps: int = 200
     lr: float = 2e-2

@@ -1,5 +1,6 @@
 """Build the CUDA sources of `csrc/` with nvcc at first use, into plain-C
-shared libraries loaded with ctypes.
+shared libraries loaded with ctypes, and check the tensors a wrapper hands
+them.
 
 Each source builds into the package's own `build/` directory (listed in
 .gitignore), under a name keyed by a hash of the source and the flags, so
@@ -72,3 +73,15 @@ def load(name: str) -> ctypes.CDLL:
             os.replace(tmp, out)
         _LOADED[name] = ctypes.CDLL(str(out))
     return _LOADED[name]
+
+
+def check_arg(name: str, x, dtype, shape, device) -> None:
+    """Raise unless tensor `x` has this dtype, shape and device and is
+    contiguous: a kernel reads it through a raw pointer."""
+    if x.device != device or x.dtype != dtype or tuple(x.shape) != shape:
+        raise ValueError(
+            f"{name}: want {dtype} {shape} on {device}, got {x.dtype} "
+            f"{tuple(x.shape)} on {x.device}"
+        )
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

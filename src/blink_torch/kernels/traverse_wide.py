@@ -32,6 +32,7 @@ import torch
 from blink_torch.bvh.build import _morton3
 from blink_torch.bvh.sah import build_sah_bvh
 from blink_torch.bvh.wide import WIDE_STACK_CAP, WideBVH, build_wide
+from blink_torch.kernels._build import check_arg
 from blink_torch.kernels.triangle import triangle_t
 from blink_torch.kernels.types import T_MAX, T_MIN
 
@@ -121,7 +122,7 @@ def build_chunked_wide(tris, chunk_tris: int = CHUNK_TRIS, wide_leaf: int = 32,
     """Chunked quantized WideBVH list, padded to shared shapes when there
     is more than one chunk. `wide_leaf` is the traversal leaf chosen at
     collapse time."""
-    verts = tris.verts.cpu().numpy()
+    verts = tris.verts.detach().cpu().numpy()
     idx = tris.idx.cpu().numpy()
     chunks = [
         build_wide(b, wide_leaf=wide_leaf)
@@ -344,34 +345,24 @@ def _lib():
     return lib
 
 
-def _check(name, x, dtype, shape, device):
-    if x.device != device or x.dtype != dtype or tuple(x.shape) != shape:
-        raise ValueError(
-            f"{name}: want {dtype} {shape} on {device}, got {x.dtype} "
-            f"{tuple(x.shape)} on {x.device}"
-        )
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _launch(kind: str, o, d, c: WideChunk, out0, out1, t_min: float) -> None:
     """One kernel launch over one chunk. Closest: out0 = t (in/out), out1 =
     prim (in/out). Any hit: out0 = t_far, out1 = blocked (in/out)."""
     n = o.shape[0]
     dev = o.device
-    _check("o", o, torch.float32, (n, 3), dev)
-    _check("d", d, torch.float32, (n, 3), dev)
-    _check("t" if kind == "wide_closest" else "t_far", out0, torch.float32, (n,), dev)
+    check_arg("o", o, torch.float32, (n, 3), dev)
+    check_arg("d", d, torch.float32, (n, 3), dev)
+    check_arg("t" if kind == "wide_closest" else "t_far", out0, torch.float32, (n,), dev)
     if kind == "wide_closest":
-        _check("prim", out1, torch.int32, (n,), dev)
+        check_arg("prim", out1, torch.int32, (n,), dev)
     else:
-        _check("blocked", out1, torch.bool, (n,), dev)
+        check_arg("blocked", out1, torch.bool, (n,), dev)
     nw = c.perm.shape[0] // 8
-    _check("child", c.child, torch.int32, (nw * 24,), dev)
-    _check("nbox", c.nbox, torch.float32, (nw * 8,), dev)
-    _check("perm", c.perm, torch.int32, (nw * 8,), dev)
-    _check("tri", c.tri, torch.float32, (c.tri.shape[0], 12), dev)
-    _check("tri_id", c.tri_id, torch.int32, (c.tri.shape[0],), dev)
+    check_arg("child", c.child, torch.int32, (nw * 24,), dev)
+    check_arg("nbox", c.nbox, torch.float32, (nw * 8,), dev)
+    check_arg("perm", c.perm, torch.int32, (nw * 8,), dev)
+    check_arg("tri", c.tri, torch.float32, (c.tri.shape[0], 12), dev)
+    check_arg("tri_id", c.tri_id, torch.int32, (c.tri.shape[0],), dev)
     if c.tri.data_ptr() % 16:
         raise ValueError("tri must be 16-byte aligned (read as float4)")
     if n == 0:

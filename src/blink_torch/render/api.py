@@ -9,6 +9,7 @@ block id.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -18,6 +19,7 @@ from blink_torch.core import sampler
 from blink_torch.render.camera import generate_rays
 from blink_torch.render.integrators import INTEGRATORS
 from blink_torch.scene.scene import Scene
+from blink_torch.scene.shade import pack_tri_shade
 
 #: Pixels per tile (a 64x64 square, else a 32x128 strip).
 _TILE_PIXELS = 32 * 128
@@ -90,6 +92,10 @@ def untile_image(acc: torch.Tensor, h: int, w: int, th: int, tw: int) -> torch.T
 
 def render_image(scene: Scene, cfg: RenderConfig, backend) -> torch.Tensor:
     """Accumulated (H, W, 3) radiance image on the scene's device."""
+    # Static geometry and no table yet (the brute backend): pack it once, in
+    # the graph. With geom_dirty, refine gathers vertices live instead.
+    if scene.n_triangles > 0 and backend.shade is None and not scene.geom_dirty:
+        backend = dataclasses.replace(backend, shade=pack_tri_shade(scene.triangles))
     h, w = cfg.height, cfg.width
     dev = scene.device
     root = sampler.seed_key(cfg.seed, device=dev)

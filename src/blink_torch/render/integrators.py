@@ -39,12 +39,13 @@ def _light_contrib(scene: Scene, geom: HitGeom, backend, light, u1, u2, light_ro
     wi = to_l / dist[:, None]
     cos_s = torch.clamp(vec.vdot(geom.n, wi), min=0.0)
     cos_l = torch.abs(vec.vdot(n_l, wi))  # two-sided emitters
-    emit = scene.materials.emission[mat_l.long()]
+    emit = scene.materials.emission.index_select(0, mat_l.long())
 
     shadow_o = geom.p + geom.n * RAY_EPS
     # t_far = 0 for rays whose primary missed: they fail every slab test
     # and cost one root visit instead of a walk from a meaningless origin.
-    t_far = torch.where(geom.valid, dist * (1.0 - 1e-3), 0.0)
+    # Visibility carries no gradient.
+    t_far = torch.where(geom.valid, dist.detach() * (1.0 - 1e-3), 0.0)
     blocked = backend.occluded(shadow_o, wi, scene, t_far)
 
     geom_term = cos_s * cos_l / torch.clamp(dist2, min=1e-8)

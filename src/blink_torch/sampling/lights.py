@@ -91,7 +91,7 @@ def sample_light_point(scene: Scene, light, u1, u2, rows=None):
     """
     if rows is None:
         rows = pack_light_rows(scene)
-    row = rows[light.long()]
+    row = rows.index_select(0, light.long())
     a0 = row[:, 0:3]
     a1 = row[:, 3:6]
     a2 = row[:, 6:9]

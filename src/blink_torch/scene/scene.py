@@ -21,7 +21,10 @@ LIGHT_SPHERE = 1
 
 class _Tensors:
     """`.to(device)` for a dataclass whose fields are tensors or such
-    dataclasses."""
+    dataclasses (other fields are carried as they are), and `.replace`."""
+
+    def replace(self, **updates):
+        return dataclasses.replace(self, **updates)
 
     def to(self, device):
         updates = {}
@@ -80,6 +83,10 @@ class Scene(_Tensors):
     lights: Lights
     textures: torch.Tensor  # (K, R, R, 3) f32 texture atlas (K may be 0)
     camera: Camera
+    #: Set when triangle vertices were swapped for parameters (api's
+    #: merge_params): a backend's precomputed shade table then has stale
+    #: geometry lanes, and refine gathers vertices live.
+    geom_dirty: bool = False
 
     @property
     def device(self) -> torch.device:

@@ -10,20 +10,42 @@ Column layout (SHADE_COLS = 16):
   15    material id (exact in f32 for ids < 2^24)
 
 diff.hitrefine reads every attribute of a hit triangle from one row.
+
+Two producers: `pack_tri_shade`, in torch and differentiable with respect
+to the vertices and uvs (render_image builds it in the graph when a
+backend has no table and the geometry is static), and `pack_tri_shade_np`,
+built once on the host by make_backend.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from blink_torch.scene.scene import Triangles
 
 SHADE_COLS = 16
 
 
+def pack_tri_shade(tris: Triangles) -> torch.Tensor:
+    """(T, 16) shading table in torch, on the triangles' device."""
+    if tris.idx.shape[0] == 0:
+        return torch.zeros((0, SHADE_COLS), dtype=tris.verts.dtype,
+                           device=tris.verts.device)
+    i = tris.idx.long()
+    v0 = tris.verts[i[:, 0]]
+    e1 = tris.verts[i[:, 1]] - v0
+    e2 = tris.verts[i[:, 2]] - v0
+    uv0 = tris.uv[i[:, 0]]
+    duv1 = tris.uv[i[:, 1]] - uv0
+    duv2 = tris.uv[i[:, 2]] - uv0
+    mat = tris.material_id.to(tris.verts.dtype)[:, None]
+    return torch.cat([v0, e1, e2, uv0, duv1, duv2, mat], dim=1)
+
+
 def pack_tri_shade_np(tris: Triangles) -> np.ndarray:
     """(T, 16) float32 shading table, built on the host with numpy."""
     idx = tris.idx.cpu().numpy()
-    verts = tris.verts.cpu().numpy()
+    verts = tris.verts.detach().cpu().numpy()
     if idx.shape[0] == 0:
         return np.zeros((0, SHADE_COLS), verts.dtype)
     uv = tris.uv.cpu().numpy()
