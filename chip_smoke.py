@@ -31,14 +31,31 @@ Phases (each asserts; any failure exits non-zero):
                 through render(): launch counts, image checks, the kernels
                 again on the frame's own rays, frame and kernel times, the
                 bound implied by the walk's counted node pops and triangle
-                tests, and one profiled frame;
+                tests (bound from the seen marks), and one profiled frame;
   8. fwd+bwd  — the metric of record's shape: pixel MSE of the same frame,
                 forward only, value-and-grad of albedo+emission, and of
                 albedo+emission+tri_verts through render_grad, timed,
                 checked (finite, non-zero vertex gradients, the albedo
                 finite-difference probe), with peak memory and one profiled
                 step.
-  9. binary   — Sponza 1M in 9 packed SAH chunks of up to 120,000
+  9. leafmode — every variant of the wide walk on the same scene, over
+                three layouts: (a) 150k-triangle chunks, wide leaves of 44,
+                quantized boxes, row tables; (b) build_chunked_wide's
+                defaults, 120k-triangle chunks, leaves of 32, f32 boxes,
+                row tables; (c) layout (a) with f32 boxes (group and skip
+                only). On the 1024x1024 frame's primary rays and their
+                shadow rays: each variant once through its wrapper (the
+                counts), row and stream against group bit for bit, skip
+                missing everything, group against the production walk;
+                each output against its plain version bit for bit, with
+                the counts and seen marks for its bound; its time. Then
+                the frame through render() on a layout-(a) backend under
+                BLINK_LEAF_MODE=group, row and stream: each frame's walks
+                against their plain versions bit for bit on their own
+                rays, identical images, each variant's launches; and the
+                production backend under BLINK_LEAF_MODE=row (group
+                launches).
+ 10. binary   — Sponza 1M in 9 packed SAH chunks of up to 120,000
                 triangles (leaf 16): the packed traversal drives the four
                 binary-walk entry points once; each against its plain
                 version on 65,536 primary rays (every 16th of the 1024x1024
@@ -47,19 +64,20 @@ Phases (each asserts; any failure exits non-zero):
                 chunked closest hit against the wide backend, with the
                 count of exact t ties; node visits and triangle tests per
                 ray from the plain versions, for the bound;
- 10. config 2 — the bunny (81,924 triangles) at 512x512, 4 spp, stochastic
+ 11. config 2 — the bunny (81,924 triangles) at 512x512, 4 spp, stochastic
                 direct, through backend 'bvh' and render(): 4 skip-link
                 closest and 4 any-hit launches, the kernels against their
                 plain versions on the frame's own rays, the image against
                 the wide backend's, the bunny golden through bvh, and frame
                 and walk times;
- 11. shard    — a one-rank NCCL group: scene-sharded traversal of the
+ 12. shard    — a one-rank NCCL group: scene-sharded traversal of the
                 1024x1024 frame's primary rays and their shadow rays over
                 build_sharded_chunks(tris, 1) (9 padded chunks), its two
                 kernels bit for bit equal to their plain versions there,
                 the result equal to the replicated packed traversal and to
-                the wide backend (up to exact t ties), with the walks' times;
- 12. dist     — on config 2 through bvh, dist_render equals render bit for
+                the wide backend (up to exact t ties), with the walks'
+                times and the ordered closest hit's bound at that size;
+ 13. dist     — on config 2 through bvh, dist_render equals render bit for
                 bit and dist_render_grad matches render_grad.
 Each main path is driven with the launch counts set to 0 just before it
 and read just after. The second-to-last line is {"kernels": [...]}, the
@@ -148,12 +166,14 @@ def events_ms(fn, reps: int) -> float:
 # ---------------------------------------------------------------- checks
 
 
-def check_closest(o, d, chunks, t_far, label):
-    """Kernel against plain; returns (max |t| error, pops, tests, plain_ms)."""
+def check_closest(o, d, chunks, t_far, label, seen=None):
+    """Kernel against plain; returns (max |t| error, pops, tests, plain_ms,
+    (t, prim))."""
     t_k, p_k = tw.traverse_closest_wide(o, d, chunks, t_far=t_far)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    t_p, p_p, pops, tests = tw.closest_wide_plain(o, d, chunks, t_far=t_far, counts=True)
+    t_p, p_p, pops, tests = tw.closest_wide_plain(o, d, chunks, t_far=t_far, counts=True,
+                                                  seen=seen)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = (t_k - t_p).abs().max().item()
@@ -164,20 +184,20 @@ def check_closest(o, d, chunks, t_far, label):
     assert not bad.any(), (label, int(bad.sum()))
     log(f"[parity] closest {label}: {o.shape[0]} rays, hit {float((p_k >= 0).float().mean()):.4f}, "
         f"max|dt| {err:.3g}, prim ties {ties}, plain {plain_ms:.1f} ms")
-    return err, pops, tests, plain_ms
+    return err, pops, tests, plain_ms, (t_k, p_k)
 
 
-def check_anyhit(o, d, chunks, t_far, label):
+def check_anyhit(o, d, chunks, t_far, label, seen=None):
     b_k = tw.traverse_anyhit_wide(o, d, chunks, t_far)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    b_p, pops, tests = tw.anyhit_wide_plain(o, d, chunks, t_far, counts=True)
+    b_p, pops, tests = tw.anyhit_wide_plain(o, d, chunks, t_far, counts=True, seen=seen)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     assert torch.equal(b_k, b_p), (label, int((b_k != b_p).sum()))
     log(f"[parity] anyhit {label}: {o.shape[0]} rays, blocked {float(b_k.float().mean()):.4f}, "
         f"identical, plain {plain_ms:.1f} ms")
-    return 0.0, pops, tests, plain_ms
+    return max_abs_err(b_k, b_p), pops, tests, plain_ms, b_k
 
 
 def shadow_rays(o, d, t, prim, target):
@@ -243,10 +263,9 @@ def phase_parity(scene, backend, dev):
     d_rnd /= np.linalg.norm(d_rnd, axis=1, keepdims=True)
     o = torch.cat([o_cam, torch.from_numpy(o_rnd).to(dev)]).contiguous()
     d = torch.cat([d_cam, torch.from_numpy(d_rnd).to(dev)]).contiguous()
-    err_c, _, _, _ = check_closest(o, d, chunks, None, "primary+random")
-    t, prim = tw.traverse_closest_wide(o, d, chunks)
+    err_c, _, _, _, (t, prim) = check_closest(o, d, chunks, None, "primary+random")
     so, sd, tf = shadow_rays(o, d, t, prim, first_light_point(scene))
-    err_a, _, _, _ = check_anyhit(so, sd, chunks, tf, "shadow")
+    err_a, _, _, _, _ = check_anyhit(so, sd, chunks, tf, "shadow")
     return {"wide_closest": err_c, "wide_anyhit": err_a}
 
 
@@ -276,13 +295,13 @@ class Recorder:
     def __enter__(self):
         fc, fa, fs, pc, pa = (self._orig[n] for n in self.NAMES)
 
-        def closest(o, d, chunks, t_far=None):
-            out = fc(o, d, chunks, t_far=t_far)
+        def closest(o, d, chunks, t_far=None, leaf_mode=None):
+            out = fc(o, d, chunks, t_far=t_far, leaf_mode=leaf_mode)
             self.calls["wide_closest"].append((o.clone(), d.clone(), t_far, out))
             return out
 
-        def anyhit(o, d, chunks, t_far):
-            out = fa(o, d, chunks, t_far)
+        def anyhit(o, d, chunks, t_far, leaf_mode=None):
+            out = fa(o, d, chunks, t_far, leaf_mode=leaf_mode)
             self.calls["wide_anyhit"].append((o.clone(), d.clone(), t_far.clone(), out))
             return out
 
@@ -313,13 +332,45 @@ class Recorder:
             setattr(kapi, n, f)
 
 
-def table_bytes(chunks, n_tris: int) -> int:
-    """Bytes of the tables a walk must read: every real node's child, nbox
-    and perm records (160 B; the all-zero nodes that pad_chunks_uniform
-    appends are unreachable) and v0/e1/e2 of every real triangle (36 B; not
-    the records' 3 padding floats, nor the padding records)."""
-    nodes = sum(int(c.child.view(-1, 24).ne(0).any(1).sum()) for c in chunks)
-    return nodes * (24 + 8 + 8) * 4 + n_tris * 9 * 4
+def wide_table_bytes(chunks, seen, mode: str) -> tuple:
+    """(bytes, nodes, leaf rows) of the tables a wide walk cannot avoid
+    reading, from the plain version's `seen` marks: of each node some ray
+    popped, its child records (8 x 12 B quantized, 8 x 32 B f32), its
+    dequantization frame (32 B, quantized only), its octant orders (32 B)
+    and, in the row and stream modes, its batch refs (32 B); of each
+    triangle slot some ray tested, v0/e1/e2 (36 B); of each batch some ray
+    read, v0/e1/e2 and gid (40 B) of each real triangle in it; each once."""
+    quant, batched = chunks[0].quant, mode in ("row", "stream")
+    node_b = (96 + 32 if quant else 256) + 32 + (32 if batched else 0)
+    nodes = sum(int(m.sum()) for m, _ in seen)
+    leaf_rows = sum(int(m.sum()) for _, m in seen)
+    if batched:
+        leaf_b = sum(int((c.tbat[m, :, 9] >= 0).sum()) * 40 for c, (_, m) in zip(chunks, seen))
+    else:
+        leaf_b = leaf_rows * 36
+    return nodes * node_b + leaf_b, nodes, leaf_rows
+
+
+def wide_bound(name, chunks, mode, seen, pops, tests, n, t_far: bool, hits: int):
+    """(bound ms, bound_by) of a wide walk from its counted node pops (8
+    slab tests each) and triangle tests, against the bytes it must move:
+    the table rows it read once (wide_table_bytes), o and d (24 B) and
+    t_far (4 B) per ray, and t and prim (8 B) per ray and, in the group
+    mode, one tri_id per hit for closest hit, one flag byte for any hit."""
+    ops = int(pops.sum()) * 8 * OPS_SLAB + int(tests.sum()) * OPS_TRI
+    io = n * (24 + (4 if t_far else 0))
+    if name.startswith("wide_closest"):
+        io += n * 8 + (hits * 4 if mode == "group" else 0)
+    else:
+        io += n
+    tables, nodes, leaf_rows = wide_table_bytes(chunks, seen, mode)
+    nbytes = tables + io
+    ops_ms, bytes_ms = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    log(f"[bound] {name}: {int(pops.sum()) / n:.3f} pops/ray, {int(tests.sum()) / n:.3f} "
+        f"tri tests/ray, {ops:.4g} FP32 ops -> {ops_ms:.5f} ms; {nodes} distinct nodes and "
+        f"{leaf_rows} distinct {'batches' if mode in ('row', 'stream') else 'slots'} read, "
+        f"{nbytes} bytes -> {bytes_ms:.5f} ms")
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
 
 
 def phase_frame(scene, backend, cfg, dev, errs):
@@ -343,8 +394,11 @@ def phase_frame(scene, backend, cfg, dev, errs):
     assert 0.5 <= hit_frac <= 0.75, hit_frac
 
     # The kernels again on the frame's own rays, against the plain versions.
-    err_c, pops_c, tests_c, plain_c = check_closest(o, d, chunks, t_far, "frame primary")
-    err_a, pops_a, tests_a, plain_a = check_anyhit(so, sd, chunks, stf, "frame shadow")
+    seen_c, seen_a = [], []
+    err_c, pops_c, tests_c, plain_c, _ = check_closest(o, d, chunks, t_far, "frame primary",
+                                                       seen=seen_c)
+    err_a, pops_a, tests_a, plain_a, _ = check_anyhit(so, sd, chunks, stf, "frame shadow",
+                                                      seen=seen_a)
     errs = {"wide_closest": max(errs["wide_closest"], err_c),
             "wide_anyhit": max(errs["wide_anyhit"], err_a)}
 
@@ -363,32 +417,19 @@ def phase_frame(scene, backend, cfg, dev, errs):
     log(f"[frame] {WIDTH}x{HEIGHT} direct 1 spp: {frame_ms:.3f} ms, "
         f"{n / frame_ms * 1e3:.4g} rays/s (primary), kernels {kern_ms}")
 
-    # Bound: the walk's counted FP32 work against the bytes it must move:
-    # the tables once, o and d (24 B) and t_far (4 B) read per ray; closest
-    # hit writes t and prim (8 B) and reads one tri_id per hit, any hit
-    # writes one flag byte.
-    tb = table_bytes(chunks, scene.n_triangles)
-    io_c = n * (24 + (4 if t_far is not None else 0) + 8) + int((prim >= 0).sum()) * 4
     rows = []
-    for name, pops, tests, plain_ms, io_bytes in (
-        ("wide_closest", pops_c, tests_c, plain_c, io_c),
-        ("wide_anyhit", pops_a, tests_a, plain_a, n * (24 + 4 + 1)),
+    for name, pops, tests, plain_ms, seen, tf, hits in (
+        ("wide_closest", pops_c, tests_c, plain_c, seen_c, t_far, int((prim >= 0).sum())),
+        ("wide_anyhit", pops_a, tests_a, plain_a, seen_a, stf, 0),
     ):
-        p_sum, t_sum = int(pops.sum()), int(tests.sum())
-        ops = p_sum * 8 * OPS_SLAB + t_sum * OPS_TRI
-        ops_ms = ops / PEAK_FP32 * 1e3
-        bytes_ms = (tb + io_bytes) / PEAK_BYTES * 1e3
-        bound = max(ops_ms, bytes_ms)
-        log(f"[bound] {name}: {p_sum / n:.3f} pops/ray, {t_sum / n:.3f} tri tests/ray, "
-            f"{ops:.4g} FP32 ops -> {ops_ms:.4f} ms, {tb + io_bytes} bytes -> "
-            f"{bytes_ms:.4f} ms; kernel {kern_ms[name]:.4f} ms = "
-            f"{bound / kern_ms[name]:.4f} of the bound")
+        bound, by = wide_bound(name, chunks, "group", seen, pops, tests, n, tf is not None, hits)
+        log(f"[bound] {name}: kernel {kern_ms[name]:.4f} ms = {bound / kern_ms[name]:.4f} "
+            f"of the bound")
         rows.append({
             "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES,
             "launches": counts[name], "max_abs_err": errs[name],
             "ms": kern_ms[name], "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": None,
+            "bound_by": by, "library_ms": None,
         })
     return rows, frame_ms
 
@@ -699,6 +740,183 @@ def phase_fwd_bwd(scene, backend, dev, size: int = WIDTH) -> None:
     profile(lambda: vg(geo), "fwd+bwd geometry", mg)
 
 
+# ------------------------------------------------------- leaf modes
+
+
+#: The layouts of [leafmode], each (chunks, build_chunked_wide's arguments
+#: from the camera origin, leaf schedules walked, rows reported): (a)
+#: benchmarks/leafmode_probe.py's, the leaf-mode A/B at the metric of
+#: record's scale (150k-triangle chunks, wide leaves of 44, quantized
+#: boxes, row tables, near to far); (b) build_chunked_wide's own defaults
+#: (120k-triangle chunks, wide leaves of 32, f32 boxes, row tables), the
+#: layout of blink's interpret tests; (c) layout (a) with f32 boxes, the
+#: same trees, so that (c) against (a) is the cost of decoding quantized
+#: boxes against reading f32 ones, with and without the leaf tests.
+LEAFMODE_LAYOUTS = {
+    "a": (7, lambda cam: dict(chunk_tris=150_000, wide_leaf=44, quant=True,
+                              row_tables=True, order_from=cam), tw.LEAF_MODES, True),
+    "b": (9, lambda cam: {}, tw.LEAF_MODES, True),
+    "c": (7, lambda cam: dict(chunk_tris=150_000, wide_leaf=44, quant=False,
+                              row_tables=True, order_from=cam), ("group", "skip"), False),
+}
+
+
+def walk(any_hit, rays, chunks, mode):
+    """One wrapper call of the wide walk under leaf schedule `mode`."""
+    o, d, tf = rays
+    if any_hit:
+        return tw.traverse_anyhit_wide(o, d, chunks, tf, leaf_mode=mode)
+    return tw.traverse_closest_wide(o, d, chunks, t_far=tf, leaf_mode=mode)
+
+
+def hold_to_plain(any_hit, rays, chunks, mode, out, label):
+    """A wide walk's output `out` on `rays` (o, d, t_far) against its plain
+    version under the same leaf schedule, bit for bit: t and prim, or the
+    blocked flags. Returns (max |error|, pops, tests, seen marks, plain
+    ms of the counted call)."""
+    o, d, tf = rays
+    seen = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if any_hit:
+        ref, pops, tests = tw.anyhit_wide_plain(o, d, chunks, tf, counts=True,
+                                                leaf_mode=mode, seen=seen)
+        same = torch.equal(out, ref)
+    else:
+        t, prim, pops, tests = tw.closest_wide_plain(o, d, chunks, t_far=tf, counts=True,
+                                                     leaf_mode=mode, seen=seen)
+        ref = (t, prim)
+        same = torch.equal(out[0], t) and torch.equal(out[1], prim)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max_abs_err(out, ref)
+    assert same, (label, err)
+    what = (f"blocked {float(out.float().mean()):.4f}" if any_hit
+            else f"hit {float((out[1] >= 0).float().mean()):.4f}")
+    log(f"[leafmode] {label}: {o.shape[0]} rays, {what}, identical to the plain walk "
+        f"(max|d| {err:.3g}), plain {plain_ms:.1f} ms")
+    return err, pops, tests, seen, plain_ms
+
+
+def phase_leafmode(scene, backend, cfg, dev, size: int = WIDTH):
+    """Every leaf schedule and child-box layout of the wide walk on Sponza
+    1M, over the layouts of LEAFMODE_LAYOUTS and the size x size frame's
+    primary rays and their shadow rays: each variant once through its
+    wrapper (the counts), row and stream against group bit for bit, skip
+    missing everything, group against the production walk; each output
+    against its plain version, bit for bit, with the counts and seen marks
+    for its bound; the times. Then three frames through render() under
+    BLINK_LEAF_MODE=group|row|stream on layout (a): each frame's closest-
+    and any-hit calls against the plain versions bit for bit, the images
+    alike. Returns the rows of the new variants."""
+    cam = scene.camera.origin.detach().cpu().numpy().astype(np.float32)
+    o, d = primary_rays(scene, size, dev)
+    t_prod, p_prod = tw.traverse_closest_wide(o, d, backend.chunks)
+    so, sd, stf = short_shadow_rays(o, d, t_prod, p_prod, scene)
+    b_prod = tw.traverse_anyhit_wide(so, sd, backend.chunks, stf)
+    rays = {False: (o, d, None), True: (so, sd, stf)}
+    n = o.shape[0]
+    rows, layouts, times = [], {}, {}
+    for lay, (n_chunks, kw, modes, report) in LEAFMODE_LAYOUTS.items():
+        t0 = time.perf_counter()
+        host = tw.build_chunked_wide(scene.triangles, **kw(cam))
+        chunks = [tw.WideChunk.from_host(c, dev) for c in host]
+        quant = chunks[0].quant
+        log(f"[leafmode] layout ({lay}): {len(chunks)} chunks, {host[0].n_wide} wide nodes "
+            f"and {host[0].tbat.shape[0]} batches a chunk, wide leaf {host[0].leaf_size}, "
+            f"{'quantized' if quant else 'f32'} boxes, built in {time.perf_counter() - t0:.1f} s")
+        assert len(chunks) == n_chunks and all(c.tbat is not None for c in chunks)
+        layouts[lay] = chunks
+
+        # The path: each variant once at full size through its wrapper,
+        # with the counts set to 0 just before and read just after.
+        reset_launches()
+        out = {(a, mo): walk(a, rays[a], chunks, mo) for mo in modes for a in (False, True)}
+        torch.cuda.synchronize()
+        counts = launches()
+        log(f"[leafmode] ({lay}) launches {counts}")
+        assert counts == only(**{tw.launch_name(a, mo, quant): n_chunks
+                                 for a in (False, True) for mo in modes}), counts
+        for mo in set(modes) & {"row", "stream"}:
+            assert torch.equal(out[(False, mo)][0], out[(False, "group")][0]), (lay, mo)
+            assert torch.equal(out[(False, mo)][1], out[(False, "group")][1]), (lay, mo)
+            assert torch.equal(out[(True, mo)], out[(True, "group")]), (lay, mo)
+        assert (out[(False, "skip")][1] == -1).all() and not out[(True, "skip")].any()
+        t_g, p_g = out[(False, "group")]
+        ties = compare_with_wide(t_g, p_g, t_prod, p_prod, "leafmode")
+        mism = int((out[(True, "group")] != b_prod).sum())
+        same = "row and stream identical to group, " if "row" in modes else ""
+        log(f"[leafmode] ({lay}) {n} rays: {same}skip misses all; group against production: "
+            f"{ties} prim ties, any hit {mism} mismatches")
+        assert mism == 0
+
+        for mo in modes:
+            for a in (False, True):
+                name = tw.launch_name(a, mo, quant)
+                label = f"{name} ({lay}) {'shadow' if a else 'primary'}"
+                err, pops, tests, seen, plain_ms = hold_to_plain(a, rays[a], chunks, mo,
+                                                                 out[(a, mo)], label)
+                ms = events_ms(lambda: walk(a, rays[a], chunks, mo), 5)
+                times[(lay, name)] = ms
+                hits = 0 if a else int((out[(a, mo)][1] >= 0).sum())
+                bound, by = wide_bound(name, chunks, mo, seen, pops, tests, n,
+                                       rays[a][2] is not None, hits)
+                log(f"[leafmode] {name} ({lay}): {ms:.4f} ms at {n} rays over {n_chunks} "
+                    f"chunks, {bound / ms:.4f} of the bound")
+                if not report or (mo, quant) == ("group", True):
+                    continue  # (c) is a measurement; group+quantized is rows 1-2
+                rows.append({
+                    "name": name, "route": "cuda", "source": SOURCE,
+                    "replaces": f"{REPLACES} (leaf_mode='{mo}', quant={quant})",
+                    "launches": counts[name],
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": by, "library_ms": None,
+                })
+    for mo in ("group", "skip"):
+        log(f"[leafmode] the same trees, f32 (c) against quantized (a) boxes, {mo}: "
+            + ", ".join(f"{base} {times[('c', tw.launch_name(a, mo, False))]:.4f} against "
+                        f"{times[('a', tw.launch_name(a, mo, True))]:.4f} ms"
+                        for a, base in ((False, "closest"), (True, "any hit"))))
+
+    # render() through a wide Backend on layout (a), under each override;
+    # each frame's walks against their plain versions on their own rays.
+    chunks_a = layouts["a"]
+    wide_a = kapi.Backend(name="wide", chunks=chunks_a, shade=backend.shade)
+    n_a = LEAFMODE_LAYOUTS["a"][0]
+    images = {}
+    try:
+        for mo in ("group", "row", "stream"):
+            os.environ["BLINK_LEAF_MODE"] = mo
+            reset_launches()
+            with Recorder() as rec:
+                images[mo] = render(scene, cfg, device=dev, backend=wide_a)
+                torch.cuda.synchronize()
+            counts = launches()
+            assert counts == only(**{tw.launch_name(False, mo, True): n_a,
+                                     tw.launch_name(True, mo, True): n_a}), counts
+            (fo, fd, ftf, fout), = rec.calls["wide_closest"]
+            (ao, ad, atf, aout), = rec.calls["wide_anyhit"]
+            hold_to_plain(False, (fo, fd, ftf), chunks_a, mo, fout, f"render {mo} (a) primary")
+            hold_to_plain(True, (ao, ad, atf), chunks_a, mo, aout, f"render {mo} (a) shadow")
+            frame_ms = events_ms(lambda: render(scene, cfg, device=dev, backend=wide_a), 1)
+            log(f"[leafmode] render BLINK_LEAF_MODE={mo} on (a): launches {counts}, "
+                f"a frame {frame_ms:.3f} ms")
+        os.environ["BLINK_LEAF_MODE"] = "row"
+        reset_launches()
+        render(scene, cfg, device=dev, backend=backend)
+        torch.cuda.synchronize()
+        counts = launches()
+    finally:
+        os.environ.pop("BLINK_LEAF_MODE", None)
+    log(f"[leafmode] render BLINK_LEAF_MODE=row on the production backend: launches {counts}")
+    assert counts == only(wide_closest=len(backend.chunks), wide_anyhit=len(backend.chunks))
+    assert torch.equal(images["row"], images["group"])
+    assert torch.equal(images["stream"], images["group"])
+    log(f"[leafmode] the three frames are identical (image mean "
+        f"{images['group'].mean().item():.5f})")
+    return rows
+
+
 # ------------------------------------------------------- binary walks
 
 
@@ -995,7 +1213,8 @@ def phase_shard(scene, backend, dev, size: int = WIDTH) -> dict:
     log(f"[shard] launches {counts}")
     assert counts == only(ordered_closest=n, skip_anyhit=n), counts
     t0 = time.perf_counter()
-    t_p, prim_p = tp.ordered_walk_plain(o, d, chunks)
+    seen = []
+    t_p, prim_p, pops, tests = tp.ordered_walk_plain(o, d, chunks, counts=True, seen=seen)
     b_p = tp.skip_walk_plain(so, sd, chunks, t_far=tf, any_hit=True)
     torch.cuda.synchronize()
     errs = {"ordered_closest": max_abs_err((t, prim), (t_p, prim_p)),
@@ -1024,6 +1243,10 @@ def phase_shard(scene, backend, dev, size: int = WIDTH) -> dict:
         "wide_anyhit": events_ms(lambda: tw.traverse_anyhit_wide(so, sd, backend.chunks, tf), 3),
     }
     log(f"[shard] ms at {o.shape[0]} rays over {n} chunks: " + json.dumps(ms))
+    bound, _ = binary_bound("ordered_closest", seen, pops, tests, o.shape[0], False,
+                            int((prim >= 0).sum()))
+    log(f"[shard] ordered_closest at {o.shape[0]} rays: {ms['ordered_closest']:.4f} ms, "
+        f"{bound / ms['ordered_closest']:.4f} of the bound")
     return errs
 
 
@@ -1078,8 +1301,7 @@ def main() -> int:
     t2 = time.perf_counter()
     log(f"[scene] sponza {scene.n_triangles} triangles, {scene.n_lights} lights, "
         f"{scene.n_spheres} spheres: scene {t1 - t0:.1f} s, BVH {t2 - t1:.1f} s, "
-        f"{len(backend.chunks)} chunks, max_stack {backend.chunks[0].max_stack}, "
-        f"{table_bytes(backend.chunks, scene.n_triangles)} table bytes a walk must read")
+        f"{len(backend.chunks)} chunks, max_stack {backend.chunks[0].max_stack}")
 
     errs = phase_parity(scene, backend, dev)
     phase_golden(dev)
@@ -1087,10 +1309,11 @@ def main() -> int:
     profile(lambda: render(scene, cfg, device=dev, backend=backend), "frame", frame_ms)
     phase_fwd_bwd(scene, backend, dev)
     rows.append(sphere_row)
+    leafmode_rows = phase_leafmode(scene, backend, cfg, dev)
 
     binary_rows = phase_binary(scene, backend, dev)
     skip_rows, config2 = phase_config2(dev)
-    rows += skip_rows + binary_rows
+    rows += skip_rows + binary_rows + leafmode_rows
     from blink_torch.dist import mesh
 
     torch.cuda.set_device(dev)

@@ -1,11 +1,16 @@
-"""8-wide BVH collapse with quantized child boxes (host-side numpy;
-counterpart of `blink.bvh.wide` with `quant=True`, `row_tables=False`).
+"""8-wide BVH collapse (host-side numpy; counterpart of `blink.bvh.wide`).
 
 Collapse rule: greedy surface area. From a binary subtree root, expand
 the largest-surface-area internal candidate until 8 children are
 collected; a child subtree of at most `wide_leaf` triangles becomes a leaf
-child spanning its whole subtree. Per-node octant tables give the
+child spanning its whole subtree (with `split_free`, leafable internals
+are split too while slots are left). Per-node octant tables give the
 near-first child order for each ray-direction octant, 3 bits per slot.
+
+Child boxes are f32 (`quant=False`, 8 words a slot) or quantized to 8 bits
+a coordinate against a per-node frame (`quant=True`, 3 words a slot plus
+the frame). `row_tables=True` adds the 8-triangle batch table that the
+`row` and `stream` leaf modes read (`WideBVH.tbat`).
 """
 from __future__ import annotations
 
@@ -26,32 +31,55 @@ TRI_COLS = 12
 #: Record padding granule, kept from `blink`'s 12-records-per-row layout
 #: so that the record tables compare equal array for array.
 _TRIS_PER_ROW = 12
+#: Triangles per batch of the batch table, and floats per batch record:
+#: [v0(3) e1(3) e2(3) gid slot] and 5 zeros.
+BATCH = 8
+BATCH_COLS = 16
 
 
 @dataclasses.dataclass(frozen=True)
 class WideBVH:
-    """Host arrays of one quantized 8-wide BVH.
+    """Host arrays of one 8-wide BVH.
 
-    child: (n_wide*24,) i32 — per slot [w0, w1, w2] with
+    child: quant=False: (n_wide*64,) f32, per slot [lx ly lz hx hy hz ref
+      cnt]. quant=True: (n_wide*24,) i32, per slot [w0, w1, w2] with
       w0 = qlo.x | qlo.y<<8 | qlo.z<<16 | cnt<<24, w1 = qhi.x | qhi.y<<8 |
       qhi.z<<16, w2 = ref. cnt > 0: leaf child, triangle slots
       [ref, ref+cnt); cnt == 0 and ref > 0: internal child (wide node
-      index); both 0: empty slot.
-    nbox: (n_wide*8,) f32 per-node dequantization frames
+      index); both 0: empty slot (an EMPTY_BOX point box).
+    nbox: quant=True only, (n_wide*8,) f32 per-node dequantization frames
       [ox oy oz sx sy sz 0 0]: coord = o + q*s, q in [0, 255].
     perm: (n_wide*8,) i32 — per ray-direction octant, the 8 child slots in
       near-first order, 3 bits per position (LSB = nearest).
     tri: (P, 12) f32 triangle records; tri_id: (P,) i32 global triangle
       ids (-1 for padding records, whose zero edges never hit).
+    bref, tbat: row_tables=True only. The triangles of each leaf child,
+      re-packed into batches of 8: tbat (n_batches, 8, 16) f32, one
+      512-byte batch after another, each triangle [v0(3) e1(3) e2(3) gid
+      slot] (slot: the index within its leaf child; the tail of a leaf's
+      last batch has gid -1 and zero vertices, so it never hits). bref
+      (n_wide*8,) i32: the first batch of each leaf child (0 elsewhere).
+      `blink` keeps the same batches in (n_batches, 128) tiles for Mosaic,
+      batch B at rows 8*(B//8), lanes 16*(B%8); n_batches is its row
+      count, ceil(batches/8)*8 + 8.
+    leaf_size: the wide leaf (`wide_leaf`). block_reads: `blink`'s read
+      granularity of the group-mode leaf tests on the TPU (blocks of 8
+      records or one unroll of leaf_size); kept for parity, it has no
+      meaning for a walk that reads one record per triangle test.
     """
 
     child: np.ndarray
-    nbox: np.ndarray
     perm: np.ndarray
     tri: np.ndarray
     tri_id: np.ndarray
     n_wide: int
     max_stack: int
+    leaf_size: int = 32
+    quant: bool = False
+    block_reads: bool = False
+    nbox: np.ndarray | None = None
+    bref: np.ndarray | None = None
+    tbat: np.ndarray | None = None
 
 
 def _quantize_children(child: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -126,10 +154,17 @@ def _sa(lo: np.ndarray, hi: np.ndarray) -> float:
     return float(d[0] * d[1] + d[1] * d[2] + d[0] * d[2])
 
 
-def build_wide(bvh: FlatBVH, wide_leaf: int = 32) -> WideBVH:
-    """Collapse a binary preorder skip-link FlatBVH into a quantized
-    WideBVH. Needs the SAH builder's tight preorder leaf-slot packing: any
-    subtree then owns the contiguous slot span [csum[i], csum[skip[i]])."""
+def build_wide(bvh: FlatBVH, wide_leaf: int = 32, split_free: bool = False,
+               block_reads: bool = False, quant: bool = False,
+               row_tables: bool = True) -> WideBVH:
+    """Collapse a binary preorder skip-link FlatBVH into a WideBVH. Needs
+    the SAH builder's tight preorder leaf-slot packing: any subtree then
+    owns the contiguous slot span [csum[i], csum[skip[i]]).
+
+    split_free: once no child must be split, split leafable internal
+    children too while slots are left (finer boxes in slots that are
+    tested anyway). quant: quantized child boxes (the production layout);
+    row_tables: add bref/tbat for the row and stream leaf modes."""
     lo = np.asarray(bvh.lo, np.float32)
     hi = np.asarray(bvh.hi, np.float32)
     skip = np.asarray(bvh.skip, np.int64)
@@ -164,14 +199,18 @@ def build_wide(bvh: FlatBVH, wide_leaf: int = 32) -> WideBVH:
         kids = [b]
         while len(kids) < WIDTH:
             # Split the kid bigger than a wide leaf with the largest
-            # surface area; kids that fit a wide leaf stay leaves.
-            best, best_sa = -1, -1.0
+            # surface area; then, with split_free, leafable internals by
+            # the same rule. Other kids that fit a wide leaf stay leaves.
+            best, best_sa, best_must = -1, -1.0, False
             for i, k in enumerate(kids):
-                if not is_internal[k] or sub_count[k] <= wide_leaf:
+                if not is_internal[k]:
+                    continue
+                must = not sub_count[k] <= wide_leaf
+                if not must and not split_free:
                     continue
                 s = _sa(lo[k], hi[k])
-                if s > best_sa:
-                    best, best_sa = i, s
+                if (must, s) > (best_must, best_sa):
+                    best, best_sa, best_must = i, s, must
             if best < 0:
                 break
             k = kids.pop(best)
@@ -252,13 +291,58 @@ def build_wide(bvh: FlatBVH, wide_leaf: int = 32) -> WideBVH:
     tri_id = np.full((n_rec,), -1, np.int32)
     tri_id[:p] = bvh.tri_id
 
-    childq, nbox = _quantize_children(child)
+    kw = {}
+    if quant:
+        kw["child"], kw["nbox"] = _quantize_children(child)
+    else:
+        kw["child"] = child.reshape(n_wide * WIDTH * 8)
+    if row_tables:
+        leaves = [
+            (wid, s, int(sub_first[k]), int(sub_count[k]))
+            for wid in range(n_wide)
+            for s, (k, r) in enumerate(zip(kids_of[wid], wide_ref[wid]))
+            if r < 0 and sub_count[k] > 0
+        ]
+        kw["bref"], kw["tbat"] = _batch_table(bvh, leaves, n_wide)
     return WideBVH(
-        child=childq,
-        nbox=nbox,
         perm=perm.reshape(n_wide * WIDTH),
         tri=tri,
         tri_id=tri_id,
         n_wide=n_wide,
         max_stack=max_stack,
+        leaf_size=wide_leaf,
+        quant=quant,
+        block_reads=block_reads,
+        **kw,
     )
+
+
+def _batch_table(bvh: FlatBVH, leaves, n_wide: int):
+    """(bref (n_wide*8,) i32, tbat (n_batches, 8, 16) f32) for the leaf
+    children `leaves` = [(wide node, slot, first triangle slot, count)], in
+    node-then-slot order: each leaf's triangles in ceil(count/8) batches,
+    the leaves' batches one after another."""
+    bref = np.zeros((n_wide, WIDTH), np.int32)
+    nb = 0
+    if leaves:
+        wid, slot, first, cnt = (np.asarray(a, np.int64) for a in zip(*leaves))
+        nbat = -(-cnt // BATCH)
+        start = np.cumsum(nbat) - nbat
+        bref[wid, slot] = start
+        nb = int(nbat.sum())
+    # `blink`'s row count: whole tiles of 8 batches, and one tile more for
+    # the stream mode's fixed two-tile read window.
+    tbat = np.zeros((-(-max(nb, 1) // 8) * 8 + 8, BATCH, BATCH_COLS), np.float32)
+    if nb:
+        leaf = np.repeat(np.arange(len(leaves)), nbat)  # leaf of each batch
+        local = (np.arange(nb) - start[leaf])[:, None] * BATCH + np.arange(BATCH)
+        real = local < cnt[leaf][:, None]  # (nb, 8)
+        src = np.where(real, first[leaf][:, None] + local, 0)
+        tbat[:nb, :, 0:3] = bvh.tv0[src]
+        tbat[:nb, :, 3:6] = bvh.te1[src]
+        tbat[:nb, :, 6:9] = bvh.te2[src]
+        tbat[:nb, :, 9] = bvh.tri_id[src]
+        tbat[:nb, :, 10] = local
+        tbat[:nb][~real] = 0.0
+        tbat[:nb, :, 9][~real] = -1.0
+    return bref.reshape(n_wide * WIDTH), tbat

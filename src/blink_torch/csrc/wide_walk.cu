@@ -1,12 +1,32 @@
-// Wide-BVH walk for Hopper: closest hit and any hit over one quantized
-// 8-wide BVH chunk, one thread per ray.
+// Wide-BVH walk for Hopper: closest hit and any hit over one 8-wide BVH
+// chunk, one thread per ray, under each of blink's leaf schedules and
+// child-box layouts.
 //
-// Replaces: src/blink/kernels/traverse_pallas.py::_make_kernel_wide with
-// quant=True, leaf_mode='group' (any_hit=False and any_hit=True), reached
-// through _traverse_wide_packed. The TPU kernel walks a 4096-ray packet
-// with one scalar cursor, because the TPU has no per-lane gathers; here
-// each ray walks with its own stack and takes its child order from its own
-// direction octant. Child order changes only which of two exactly tied
+// Replaces: src/blink/kernels/traverse_pallas.py::_make_kernel_wide,
+// reached through _traverse_wide_packed, with any_hit False and True and:
+//   - quant=True/False: quantized child boxes (8-bit coordinates against a
+//     per-node frame, decoded here) or f32 child boxes (two float4 loads a
+//     slot, no decode);
+//   - leaf_mode='group': the leaf children that pass, tested at the
+//     parent's pop, triangles from the record table `tri`;
+//   - leaf_mode='row': the same leaves, triangles from the 8-triangle batch
+//     table `tbat` through `bref`; each batch's tests run against the best
+//     t at batch entry, the lowest slot wins among equal t, and the batch
+//     merges with a strict <, so the hits are group's bit for bit;
+//   - leaf_mode='stream': a leaf that passes is recorded (and its batches
+//     prefetched into L2) and tested at the ray's next leaf, or after the
+//     walk: a one-leaf deferral per thread, the counterpart of the TPU
+//     kernel's DMA double buffer. The walk then prunes with a best t one
+//     leaf late, visits a superset of group's nodes and finds group's hits;
+//   - leaf_mode='skip': the walk without leaf tests, for timing only (every
+//     ray misses): its time against group's splits a walk into node walk
+//     and leaf tests.
+// The TPU kernel walks a 4096-ray packet with one scalar cursor, because
+// the TPU has no per-lane gathers, and gates leaf tests by row groups or
+// 128-ray rows; here each ray walks with its own stack, takes its child
+// order from its own direction octant and tests only the leaves its own
+// slab tests pass, so the packet-shape knobs (rows, row_groups) have no
+// counterpart. Child order changes only which of two exactly tied
 // triangles wins.
 //
 // Arithmetic, kept identical to the plain torch version
@@ -25,13 +45,13 @@
 // expressions round like the plain torch version.
 //
 // What bounds it on the H100: the FP32 work of the slab tests (8 per node
-// pop) and the triangle tests, and the scattered reads of 96-byte node
-// records and 48-byte triangle records. All tables stay in global memory:
-// one chunk's node tables (~0.5 MB at 1M triangles) do not fit the 227 KB
-// of shared memory a block may use, and the three chunks of the 1M-triangle
-// scene (~45 MB) fit the 50 MB L2. Nothing more is done about it in this
-// first version: no shared-memory staging, no packet or warp-cooperative
-// traversal, no persistent threads.
+// pop) and the triangle tests, and the scattered reads of node records
+// (96 bytes quantized plus a 32-byte frame, 256 bytes f32) and triangle
+// records (48 bytes; 64 in a batch). All tables stay in global memory: one
+// chunk's node tables (~0.5 MB at 1M triangles) do not fit the 227 KB of
+// shared memory a block may use, and a 1M-triangle scene's tables fit the
+// 50 MB L2 or nearly. Nothing more is done about it yet: no shared-memory
+// staging, no packet or warp-cooperative traversal, no persistent threads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -97,17 +117,65 @@ __device__ __forceinline__ float tri_t(float ox, float oy, float oz, float dx,
   return valid ? t : kTMax;
 }
 
+enum LeafMode { kGroup = 0, kRow = 1, kStream = 2, kSkip = 3 };  // LEAF_MODES
+
+// The triangles of one leaf child from the batch table: ceil(cnt/8) batches
+// of 8 records of 16 floats ([v0 e1 e2 gid slot] and padding, so a
+// record's first 12 floats read as tri_t's three float4s), from batch b0.
+// Each batch's tests run against the best t at batch entry; the first
+// minimum wins and merges with a strict <. Returns true at an any hit.
+template <bool ANY_HIT>
+__device__ __forceinline__ bool test_batches(
+    const float4* __restrict__ tbat, int b0, int cnt, float ox, float oy,
+    float oz, float dx, float dy, float dz, float t_min, float& best,
+    int& best_gid) {
+  for (int b = 0; 8 * b < cnt; ++b) {
+    const float4* bat = tbat + static_cast<size_t>(b0 + b) * 32;
+    const int m = min(8, cnt - 8 * b);
+    const float bt0 = best;
+    float bmin = bt0;
+    int jmin = -1;
+    for (int j = 0; j < m; ++j) {
+      const float t = tri_t(ox, oy, oz, dx, dy, dz, bat + 4 * j, t_min, bt0);
+      if (t < bmin) {
+        if (ANY_HIT) return true;
+        bmin = t;
+        jmin = j;
+      }
+    }
+    if (!ANY_HIT && jmin >= 0) {
+      best = bmin;
+      best_gid = static_cast<int>(__ldg(&bat[4 * jmin + 2].y));
+    }
+  }
+  return false;
+}
+
+// The L2 lines of a leaf's records in the batch table: its triangles lie
+// contiguously from the start of its first batch, 64 bytes each.
+__device__ __forceinline__ void prefetch_leaf(const float4* tbat, int b0,
+                                              int cnt) {
+  const char* p =
+      reinterpret_cast<const char*>(tbat + static_cast<size_t>(b0) * 32);
+  for (int l = 0; l < (cnt + 1) / 2; ++l) {
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(p + 128 * l));
+  }
+}
+
 // Closest hit: t/prim hold the best so far (threaded across chunks) and are
 // updated where this chunk has a nearer hit. Any hit: t_in is t_far,
 // blocked is set where a hit lies in [t_min, min(t_far, T_MAX)); rays
-// already blocked by an earlier chunk do no work.
-template <bool ANY_HIT>
+// already blocked by an earlier chunk do no work. child is int32 words
+// (QUANT) or floats; nbox is read only with QUANT, bref and tbat only by
+// the row and stream modes.
+template <bool ANY_HIT, bool QUANT, int MODE>
 __global__ void __launch_bounds__(kThreads)
     wide_walk(const float* __restrict__ o, const float* __restrict__ d,
               float* __restrict__ t_io, int* __restrict__ prim,
-              bool* __restrict__ blocked, const int* __restrict__ child,
+              bool* __restrict__ blocked, const void* __restrict__ child,
               const float* __restrict__ nbox, const int* __restrict__ perm,
               const float4* __restrict__ tri, const int* __restrict__ tri_id,
+              const int* __restrict__ bref, const float4* __restrict__ tbat,
               int n, float t_min) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -118,7 +186,9 @@ __global__ void __launch_bounds__(kThreads)
   const int octant = (dx >= 0.0f ? 1 : 0) | (dy >= 0.0f ? 2 : 0) |
                      (dz >= 0.0f ? 4 : 0);
   float best = ANY_HIT ? nan_min(t_io[i], kTMax) : t_io[i];
-  int best_slot = -1;
+  // group: the winning record slot; row and stream: the winning gid.
+  int best_hit = -1;
+  int pend_b = 0, pend_c = 0;  // stream: the recorded leaf (cnt 0: none)
 
   int stack[WIDE_STACK_CAP];
   int sp = 0;
@@ -126,40 +196,79 @@ __global__ void __launch_bounds__(kThreads)
   while (sp > 0) {
     const int node = stack[--sp];
     const int pm = __ldg(perm + node * 8 + octant);
-    const float* nb = nbox + node * 8;
-    const float nox = __ldg(nb), noy = __ldg(nb + 1), noz = __ldg(nb + 2);
-    const float nsx = __ldg(nb + 3), nsy = __ldg(nb + 4), nsz = __ldg(nb + 5);
     int ref[8], cnt[8];
     unsigned need = 0;
+    if constexpr (QUANT) {
+      const int* cq = static_cast<const int*>(child);
+      const float* nb = nbox + node * 8;
+      const float nox = __ldg(nb), noy = __ldg(nb + 1), noz = __ldg(nb + 2);
+      const float nsx = __ldg(nb + 3), nsy = __ldg(nb + 4), nsz = __ldg(nb + 5);
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {  // near-first order of this octant
-      const int c8 = (pm >> (3 * k)) & 7;
-      const int* w = child + (node * 8 + c8) * 3;
-      const int w0 = __ldg(w), w1 = __ldg(w + 1);
-      ref[k] = __ldg(w + 2);
-      cnt[k] = w0 >> 24;
-      const bool hit = slab(
-          ox, oy, oz, ix, iy, iz, t_min, best,
-          dequant(nox, w0 & 255, nsx), dequant(noy, (w0 >> 8) & 255, nsy),
-          dequant(noz, (w0 >> 16) & 255, nsz), dequant(nox, w1 & 255, nsx),
-          dequant(noy, (w1 >> 8) & 255, nsy),
-          dequant(noz, (w1 >> 16) & 255, nsz));
-      need |= (hit ? 1u : 0u) << k;
+      for (int k = 0; k < 8; ++k) {  // near-first order of this octant
+        const int c8 = (pm >> (3 * k)) & 7;
+        const int* w = cq + (node * 8 + c8) * 3;
+        const int w0 = __ldg(w), w1 = __ldg(w + 1);
+        ref[k] = __ldg(w + 2);
+        cnt[k] = w0 >> 24;
+        const bool hit = slab(
+            ox, oy, oz, ix, iy, iz, t_min, best,
+            dequant(nox, w0 & 255, nsx), dequant(noy, (w0 >> 8) & 255, nsy),
+            dequant(noz, (w0 >> 16) & 255, nsz), dequant(nox, w1 & 255, nsx),
+            dequant(noy, (w1 >> 8) & 255, nsy),
+            dequant(noz, (w1 >> 16) & 255, nsz));
+        need |= (hit ? 1u : 0u) << k;
+      }
+    } else {
+      const float4* cf = static_cast<const float4*>(child);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int c8 = (pm >> (3 * k)) & 7;
+        const float4 a = __ldg(cf + (node * 8 + c8) * 2);  // lx ly lz hx
+        const float4 b = __ldg(cf + (node * 8 + c8) * 2 + 1);  // hy hz ref cnt
+        ref[k] = static_cast<int>(b.z);
+        cnt[k] = static_cast<int>(b.w);
+        const bool hit =
+            slab(ox, oy, oz, ix, iy, iz, t_min, best, a.x, a.y, a.z, a.w, b.x, b.y);
+        need |= (hit ? 1u : 0u) << k;
+      }
     }
-    // Leaf children, tested at the parent's pop, in near-first order.
+    // Leaf children of this pop, in near-first order.
+    if constexpr (MODE != kSkip) {
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      if (!((need >> k) & 1u) || cnt[k] <= 0) continue;
-      for (int s = ref[k]; s < ref[k] + cnt[k]; ++s) {
-        const float t =
-            tri_t(ox, oy, oz, dx, dy, dz, tri + 3 * s, t_min, best);
-        if (t < best) {
-          if (ANY_HIT) {
-            blocked[i] = true;
-            return;
+      for (int k = 0; k < 8; ++k) {
+        if (!((need >> k) & 1u) || cnt[k] <= 0) continue;
+        if constexpr (MODE == kGroup) {
+          for (int s = ref[k]; s < ref[k] + cnt[k]; ++s) {
+            const float t =
+                tri_t(ox, oy, oz, dx, dy, dz, tri + 3 * s, t_min, best);
+            if (t < best) {
+              if (ANY_HIT) {
+                blocked[i] = true;
+                return;
+              }
+              best = t;
+              best_hit = s;
+            }
           }
-          best = t;
-          best_slot = s;
+        } else {
+          const int b0 = __ldg(bref + node * 8 + ((pm >> (3 * k)) & 7));
+          if constexpr (MODE == kRow) {
+            if (test_batches<ANY_HIT>(tbat, b0, cnt[k], ox, oy, oz, dx, dy, dz,
+                                      t_min, best, best_hit)) {
+              blocked[i] = true;
+              return;
+            }
+          } else {  // kStream: test the recorded leaf, record this one
+            if (pend_c > 0 &&
+                test_batches<ANY_HIT>(tbat, pend_b, pend_c, ox, oy, oz, dx, dy,
+                                      dz, t_min, best, best_hit)) {
+              blocked[i] = true;
+              return;
+            }
+            pend_b = b0;
+            pend_c = cnt[k];
+            prefetch_leaf(tbat, b0, pend_c);
+          }
         }
       }
     }
@@ -169,44 +278,83 @@ __global__ void __launch_bounds__(kThreads)
       if (((need >> k) & 1u) && cnt[k] == 0 && ref[k] > 0) stack[sp++] = ref[k];
     }
   }
-  if (!ANY_HIT && best_slot >= 0) {
+  if constexpr (MODE == kStream) {
+    if (pend_c > 0 && test_batches<ANY_HIT>(tbat, pend_b, pend_c, ox, oy, oz,
+                                            dx, dy, dz, t_min, best, best_hit)) {
+      blocked[i] = true;
+      return;
+    }
+  }
+  if (!ANY_HIT && best_hit >= 0) {
     t_io[i] = best;
-    prim[i] = __ldg(tri_id + best_slot);
+    prim[i] = MODE == kGroup ? __ldg(tri_id + best_hit) : best_hit;
   }
 }
 
-template <bool ANY_HIT>
+template <bool ANY_HIT, bool QUANT, int MODE>
 int launch(const float* o, const float* d, float* t_io, int* prim,
-           bool* blocked, const int* child, const float* nbox, const int* perm,
-           const float* tri, const int* tri_id, int n, float t_min,
-           cudaStream_t stream) {
+           bool* blocked, const void* child, const float* nbox, const int* perm,
+           const float* tri, const int* tri_id, const int* bref,
+           const float* tbat, int n, float t_min, cudaStream_t stream) {
   const int blocks = (n + kThreads - 1) / kThreads;
-  wide_walk<ANY_HIT><<<blocks, kThreads, 0, stream>>>(
+  wide_walk<ANY_HIT, QUANT, MODE><<<blocks, kThreads, 0, stream>>>(
       o, d, t_io, prim, blocked, child, nbox, perm,
-      reinterpret_cast<const float4*>(tri), tri_id, n, t_min);
+      reinterpret_cast<const float4*>(tri), tri_id, bref,
+      reinterpret_cast<const float4*>(tbat), n, t_min);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool ANY_HIT, bool QUANT>
+int launch_mode(int mode, const float* o, const float* d, float* t_io,
+                int* prim, bool* blocked, const void* child, const float* nbox,
+                const int* perm, const float* tri, const int* tri_id,
+                const int* bref, const float* tbat, int n, float t_min,
+                cudaStream_t stream) {
+#define BLINK_WIDE_CASE(M)                                                   \
+  case M:                                                                    \
+    return launch<ANY_HIT, QUANT, M>(o, d, t_io, prim, blocked, child, nbox, \
+                                     perm, tri, tri_id, bref, tbat, n, t_min, \
+                                     stream);
+  switch (mode) {
+    BLINK_WIDE_CASE(kGroup)
+    BLINK_WIDE_CASE(kRow)
+    BLINK_WIDE_CASE(kStream)
+    BLINK_WIDE_CASE(kSkip)
+  }
+#undef BLINK_WIDE_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// o, d: (n, 3) f32; t: (n,) f32 best t, in/out; prim: (n,) i32, in/out;
-// child: (n_wide*24,) i32; nbox, perm: (n_wide*8,); tri: (P, 12) f32 with
-// 16-byte-aligned rows; tri_id: (P,) i32. Returns cudaGetLastError().
-extern "C" int wide_closest(const float* o, const float* d, float* t, int* prim,
-                            const int* child, const float* nbox,
-                            const int* perm, const float* tri,
-                            const int* tri_id, int n, float t_min,
-                            cudaStream_t stream) {
-  return launch<false>(o, d, t, prim, nullptr, child, nbox, perm, tri, tri_id,
-                       n, t_min, stream);
-}
-
-// As wide_closest, with t_far: (n,) f32 and blocked: (n,) bool, in/out.
-extern "C" int wide_anyhit(const float* o, const float* d, const float* t_far,
-                           bool* blocked, const int* child, const float* nbox,
-                           const int* perm, const float* tri,
-                           const int* tri_id, int n, float t_min,
-                           cudaStream_t stream) {
-  return launch<true>(o, d, const_cast<float*>(t_far), nullptr, blocked, child,
-                      nbox, perm, tri, tri_id, n, t_min, stream);
+// One launch of the variant (any_hit, quant, mode) over one chunk.
+// o, d: (n, 3) f32. Closest hit: t (n,) f32 best t and prim (n,) i32, both
+// in/out; blocked null. Any hit: t is t_far (n,) f32, read only; blocked
+// (n,) bool in/out; prim null. child: quant (n_wide*24,) i32, else
+// (n_wide*64,) f32, 16-byte aligned; nbox (n_wide*8,) f32 (quant only);
+// perm (n_wide*8,) i32; tri (P, 12) f32 with 16-byte-aligned rows; tri_id
+// (P,) i32; bref (n_wide*8,) i32 and tbat (n_batches, 8, 16) f32 (row and
+// stream only). mode: 0 group, 1 row, 2 stream, 3 skip. Returns
+// cudaGetLastError().
+extern "C" int wide_walk_launch(int any_hit, int quant, int mode,
+                                const float* o, const float* d, float* t,
+                                int* prim, bool* blocked, const void* child,
+                                const float* nbox, const int* perm,
+                                const float* tri, const int* tri_id,
+                                const int* bref, const float* tbat, int n,
+                                float t_min, cudaStream_t stream) {
+  if (any_hit) {
+    return quant ? launch_mode<true, true>(mode, o, d, t, prim, blocked, child,
+                                           nbox, perm, tri, tri_id, bref, tbat,
+                                           n, t_min, stream)
+                 : launch_mode<true, false>(mode, o, d, t, prim, blocked,
+                                            child, nbox, perm, tri, tri_id,
+                                            bref, tbat, n, t_min, stream);
+  }
+  return quant ? launch_mode<false, true>(mode, o, d, t, prim, blocked, child,
+                                          nbox, perm, tri, tri_id, bref, tbat,
+                                          n, t_min, stream)
+               : launch_mode<false, false>(mode, o, d, t, prim, blocked, child,
+                                           nbox, perm, tri, tri_id, bref, tbat,
+                                           n, t_min, stream);
 }

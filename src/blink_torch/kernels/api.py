@@ -8,7 +8,11 @@
           a CUDA device, their plain torch versions on the CPU;
   wide  — the chunked, quantized 8-wide BVH (`pallas` in `blink`, accepted
           as an alias): the CUDA walks on a CUDA device, their plain torch
-          versions on the CPU;
+          versions on the CPU. The leaf mode resolves per call through
+          `traverse_wide._default_leaf_mode` (BLINK_LEAF_MODE): the
+          production chunks carry no row tables, so they always walk
+          'group'; a Backend built over chunks with row tables (bref/tbat)
+          honours BLINK_LEAF_MODE=row|stream;
   auto  — brute at 64 triangles or fewer, else wide (`blink`'s rule).
 
 Spheres go through `sphere_pass` on bvh and wide (the sphere kernel on a
@@ -70,7 +74,8 @@ class Backend:
             tf = None
             if alive is not None:
                 tf = torch.where(alive, T_MAX, 0.0).to(torch.float32)
-            best_t, tri_prim = traverse_closest_wide(o, d, self.chunks, t_far=tf)
+            best_t, tri_prim = traverse_closest_wide(o, d, self.chunks, t_far=tf,
+                                                     leaf_mode=None)
         kind = torch.where(tri_prim >= 0, KIND_TRI, KIND_NONE).to(torch.int32)
         prim = torch.clamp(tri_prim, min=0)
         if scene.n_spheres > 0:
@@ -102,7 +107,7 @@ class Backend:
         if self.name == "bvh":
             blocked = traverse_anyhit_packed(o, d, self.chunks, t_far, variant="skip")
         else:
-            blocked = traverse_anyhit_wide(o, d, self.chunks, t_far)
+            blocked = traverse_anyhit_wide(o, d, self.chunks, t_far, leaf_mode=None)
         if scene.n_spheres > 0:
             sph = scene.spheres
             s_t, _ = sphere_pass(
@@ -116,8 +121,9 @@ def make_backend(name: str, scene: Scene) -> Backend:
     """Build the backend's acceleration data on the host and place it on
     the scene's device. bvh: `blink`'s build_flat_bvh (Morton, leaves of
     16). wide: the production constants of `blink`'s pallas backend:
-    340k-triangle Morton chunks, wide leaves of 44, quantized child boxes,
-    chunks near to far from the build-time camera origin."""
+    340k-triangle Morton chunks, wide leaves of 44, quantized child boxes
+    without row tables, chunks near to far from the build-time camera
+    origin."""
     if name not in BACKENDS:
         raise KeyError(f"unknown backend '{name}'; choices: {BACKENDS}")
     if name == "auto":
@@ -134,7 +140,8 @@ def make_backend(name: str, scene: Scene) -> Backend:
         return Backend(name="bvh", chunks=[pack_bvh_planes(flat).to(device)], shade=shade)
     cam_o = scene.camera.origin.detach().cpu().numpy().astype(np.float32)
     chunks = build_chunked_wide(
-        scene.triangles, chunk_tris=340_000, wide_leaf=44, order_from=cam_o
+        scene.triangles, chunk_tris=340_000, wide_leaf=44, quant=True,
+        row_tables=False, order_from=cam_o,
     )
     return Backend(
         name="wide",

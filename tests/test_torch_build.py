@@ -84,7 +84,8 @@ def _assert_chunks_equal(ref_chunks, port_chunks) -> None:
 def test_chunked_wide_random_matches_reference():
     tris = _random_tris(1600, 41)
     ref = jax_build_chunked_wide(tris, chunk_tris=800, quant=True, row_tables=False)
-    port = build_chunked_wide(port_tris(tris), chunk_tris=800)
+    port = build_chunked_wide(port_tris(tris), chunk_tris=800, quant=True,
+                              row_tables=False)
     assert len(port) == 2
     _assert_chunks_equal(ref, port)
 
@@ -98,7 +99,7 @@ def test_chunked_wide_sponza_chunk_order_matches_reference():
     )
     port = build_chunked_wide(
         port_tris(ref_scene.triangles), chunk_tris=8000, wide_leaf=44,
-        order_from=cam,
+        quant=True, row_tables=False, order_from=cam,
     )
     assert len(port) == 3
     _assert_chunks_equal(ref, port)

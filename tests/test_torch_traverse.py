@@ -30,7 +30,8 @@ def _case(ntri, seed, chunk_tris):
     tris = _random_tris(ntri, seed)
     chunks = [
         tw.WideChunk.from_host(c, "cpu")
-        for c in tw.build_chunked_wide(port_tris(tris), chunk_tris=chunk_tris)
+        for c in tw.build_chunked_wide(port_tris(tris), chunk_tris=chunk_tris,
+                                       quant=True, row_tables=False)
     ]
     o, d = _random_rays(N_RAYS, seed + 1)
     return tris, chunks, o, d, torch.from_numpy(np.array(o)), torch.from_numpy(np.array(d))
