@@ -31,7 +31,10 @@ Phases (each asserts; any failure exits non-zero):
                 through render(): launch counts, image checks, the kernels
                 again on the frame's own rays, frame and kernel times, the
                 bound implied by the walk's counted node pops and triangle
-                tests (bound from the seen marks), and one profiled frame;
+                tests (bound from the seen marks), the walks' registers,
+                spills and resident warps an SM, with their times before
+                their redesign (PR 5's, for the log only), and one
+                profiled frame;
   8. fwd+bwd  — the metric of record's shape: pixel MSE of the same frame,
                 forward only, value-and-grad of albedo+emission, and of
                 albedo+emission+tri_verts through render_grad, timed,
@@ -52,7 +55,9 @@ Phases (each asserts; any failure exits non-zero):
                 the frame through render() on a layout-(a) backend under
                 BLINK_LEAF_MODE=group, row and stream: each frame's walks
                 against their plain versions bit for bit on their own
-                rays, identical images, each variant's launches; and the
+                rays, identical images, each variant's launches; the
+                row/group time ratio of each layout (row is the unchanged
+                control for group's redesign); and the
                 production backend under BLINK_LEAF_MODE=row (group
                 launches).
  10. binary   — Sponza 1M in 9 packed SAH chunks of up to 120,000
@@ -145,6 +150,11 @@ BINARY_REPLACES = {
     "ordered_anyhit": "src/blink/kernels/traverse_pallas.py:449",
 }
 KERNELS = ("wide_walk", "sphere_pass", "binary_walk")
+#: The production walks' times before their redesign for latency (ms at
+#: 1,048,576 rays: the production layout's 3 chunks, layout (a)'s 7), from
+#: this script's run on an H100 80GB HBM3 at 700 W (PERF.md §6, rows 1-2,
+#: PR 5). Printed in the log beside this run's times; not in the kernels line.
+PR5_MS = {"wide_closest": (1.6699, 2.8132), "wide_anyhit": (1.1791, 1.8534)}
 
 
 def log(*a) -> None:
@@ -247,6 +257,17 @@ def phase_build() -> None:
         for line in _build.log_path(k).read_text().splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[build] {k}: {line.strip()}")
+
+
+def group_kernel_facts(any_hit: bool) -> dict:
+    """Registers, local memory and resident warps an SM (the runtime) and
+    spilled bytes (ptxas) of a production walk, wide_group_walk<any_hit,
+    quantized boxes>."""
+    spills = _build.ptxas_spills(_build.log_path("wide_walk").read_text())
+    [spill] = [v for k, v in spills.items() if f"15wide_group_walkILb{int(any_hit)}ELb1E" in k]
+    a = tw.kernel_attributes(any_hit, "group", True)
+    return {"registers": a["registers"], "spill_bytes": spill, "local_bytes": a["local_bytes"],
+            "warps_per_sm": a["warps_per_sm"]}
 
 
 def phase_parity(scene, backend, dev):
@@ -423,13 +444,16 @@ def phase_frame(scene, backend, cfg, dev, errs):
         ("wide_anyhit", pops_a, tests_a, plain_a, seen_a, stf, 0),
     ):
         bound, by = wide_bound(name, chunks, "group", seen, pops, tests, n, tf is not None, hits)
+        facts = group_kernel_facts(name == "wide_anyhit")
+        before = PR5_MS[name][0]
         log(f"[bound] {name}: kernel {kern_ms[name]:.4f} ms = {bound / kern_ms[name]:.4f} "
-            f"of the bound")
+            f"of the bound; PR 5's kernel {before} ms (PERF.md, {bound / before:.4f} of the "
+            f"bound), {before / kern_ms[name]:.3f}x this run's; {facts}")
         rows.append({
             "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES,
             "launches": counts[name], "max_abs_err": errs[name],
             "ms": kern_ms[name], "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by, "library_ms": None,
+            "bound_by": by, "library_ms": None, **facts,
         })
     return rows, frame_ms
 
@@ -872,6 +896,16 @@ def phase_leafmode(scene, backend, cfg, dev, size: int = WIDTH):
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                     "bound_by": by, "library_ms": None,
                 })
+    for lay in ("a", "b"):
+        quant = layouts[lay][0].quant
+        log(f"[leafmode] ({lay}) row against group, the unchanged control against the "
+            f"redesigned walk: " + ", ".join(
+                f"{base} {times[(lay, tw.launch_name(a, 'row', quant))] / times[(lay, tw.launch_name(a, 'group', quant))]:.3f}"
+                for a, base in ((False, "closest"), (True, "any hit"))))
+    log("[leafmode] (a) group against PR 5's kernel (PERF.md): " + ", ".join(
+        f"{base} {times[('a', tw.launch_name(a, 'group', True))]:.4f} against "
+        f"{PR5_MS[base][1]} ms, {PR5_MS[base][1] / times[('a', tw.launch_name(a, 'group', True))]:.3f}x"
+        for a, base in ((False, "wide_closest"), (True, "wide_anyhit"))))
     for mo in ("group", "skip"):
         log(f"[leafmode] the same trees, f32 (c) against quantized (a) boxes, {mo}: "
             + ", ".join(f"{base} {times[('c', tw.launch_name(a, mo, False))]:.4f} against "

@@ -44,14 +44,43 @@
 // without --use_fast_math (kernels/_build.py), so that the remaining plain
 // expressions round like the plain torch version.
 //
-// What bounds it on the H100: the FP32 work of the slab tests (8 per node
-// pop) and the triangle tests, and the scattered reads of node records
-// (96 bytes quantized plus a 32-byte frame, 256 bytes f32) and triangle
-// records (48 bytes; 64 in a batch). All tables stay in global memory: one
-// chunk's node tables (~0.5 MB at 1M triangles) do not fit the 227 KB of
-// shared memory a block may use, and a 1M-triangle scene's tables fit the
-// 50 MB L2 or nearly. Nothing more is done about it yet: no shared-memory
-// staging, no packet or warp-cooperative traversal, no persistent threads.
+// What bounds it on the H100. Not the arithmetic: a ray's slab and
+// triangle tests are a few thousand lane-instructions, a small share of the
+// SM cycles a walk takes. A walk waits on chains of dependent loads and on
+// lanes that diverge. In wide_walk below, a pop reads the stack, then the
+// octant order, and only then each child record; a leaf test loads its
+// 48-byte record only after the previous test's compare and branch; and a
+// warp runs the leaf loops of its lanes' eight near-first positions one
+// after another, so a lane with a 44-triangle leaf makes 44 serial L2 round
+// trips while the rest of its warp waits. The tables stay in global memory:
+// one chunk's node tables (~0.5 MB at 1M triangles) do not fit the 227 KB
+// of shared memory a block may use, and a 1M-triangle scene's tables fit
+// the 50 MB L2 or nearly.
+//
+// The production schedule, group, is redesigned around that
+// (wide_group_walk); the row, stream and skip schedules keep the design
+// above (wide_walk). The steps, each timed against the earlier group
+// kernel in one process by wide_walk_ab.py at 1,048,576 rays on Sponza 1M,
+// H100 80GB HBM3 at 700 W (PERF.md §6):
+//   1. a pop issues all its loads together (the octant order, the node's
+//      96-byte child record as six 16-byte loads, its frame) and orders
+//      masks in registers; the nearest internal child that passed is the
+//      next node without a trip through the stack; kept;
+//   2. the leaves of a pop run as one loop over a cursor, so a warp's lanes
+//      run one loop body whatever leaf each is in (kept: with 1 and 2,
+//      0.88-0.89x the earlier time), and each turn loads a batch of records
+//      before testing the first (kept, kBatch = 8 records: 0.60-0.63x
+//      closest, 0.66-0.79x any hit); batches that run on into the pop's
+//      next leaf, two half batches with the next one's loads issued
+//      before the current one is tested, and L1 prefetches of the next
+//      node and the next batch gained nothing or were slower; dropped;
+//   3. more warps in flight: a minimum of 5-8 blocks an SM spills and was
+//      slower, the stack's top in shared memory changed nothing, blocks of
+//      32, 64 or 256 threads gained nothing; none kept (128 registers, 16
+//      resident warps an SM);
+//   4. persistent warps that take 32 rays at a time from a counter, and one
+//      loop whose every turn is a pop or a batch lane by lane, were slower;
+//      dropped.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -91,11 +120,12 @@ __device__ __forceinline__ bool slab(float ox, float oy, float oz, float ix,
   return nan_max(near, t_min) <= nan_min(far, t_max);
 }
 
-// Möller–Trumbore as kernels/triangle.py::triangle_tuv; kTMax on a miss.
-__device__ __forceinline__ float tri_t(float ox, float oy, float oz, float dx,
-                                       float dy, float dz, const float4* rec,
-                                       float t_min, float t_max) {
-  const float4 a = __ldg(rec), b = __ldg(rec + 1), c = __ldg(rec + 2);
+// Möller–Trumbore as kernels/triangle.py::triangle_tuv on a record already
+// loaded (v0 e1 e2 in three float4s); kTMax on a miss.
+__device__ __forceinline__ float tri_t_rec(float ox, float oy, float oz,
+                                           float dx, float dy, float dz,
+                                           float4 a, float4 b, float4 c,
+                                           float t_min, float t_max) {
   const float v0x = a.x, v0y = a.y, v0z = a.z;
   const float e1x = a.w, e1y = b.x, e1z = b.y;
   const float e2x = b.z, e2y = b.w, e2z = c.x;
@@ -115,6 +145,14 @@ __device__ __forceinline__ float tri_t(float ox, float oy, float oz, float dx,
   const bool valid = !degen && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
                      t >= t_min && t <= t_max;
   return valid ? t : kTMax;
+}
+
+// The same test, loading the record at `rec`.
+__device__ __forceinline__ float tri_t(float ox, float oy, float oz, float dx,
+                                       float dy, float dz, const float4* rec,
+                                       float t_min, float t_max) {
+  return tri_t_rec(ox, oy, oz, dx, dy, dz, __ldg(rec), __ldg(rec + 1),
+                   __ldg(rec + 2), t_min, t_max);
 }
 
 enum LeafMode { kGroup = 0, kRow = 1, kStream = 2, kSkip = 3 };  // LEAF_MODES
@@ -162,6 +200,7 @@ __device__ __forceinline__ void prefetch_leaf(const float4* tbat, int b0,
   }
 }
 
+// The row, stream and skip schedules (group: wide_group_walk below).
 // Closest hit: t/prim hold the best so far (threaded across chunks) and are
 // updated where this chunk has a nearer hit. Any hit: t_in is t_far,
 // blocked is set where a hit lies in [t_min, min(t_far, T_MAX)); rays
@@ -174,7 +213,6 @@ __global__ void __launch_bounds__(kThreads)
               float* __restrict__ t_io, int* __restrict__ prim,
               bool* __restrict__ blocked, const void* __restrict__ child,
               const float* __restrict__ nbox, const int* __restrict__ perm,
-              const float4* __restrict__ tri, const int* __restrict__ tri_id,
               const int* __restrict__ bref, const float4* __restrict__ tbat,
               int n, float t_min) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -186,8 +224,7 @@ __global__ void __launch_bounds__(kThreads)
   const int octant = (dx >= 0.0f ? 1 : 0) | (dy >= 0.0f ? 2 : 0) |
                      (dz >= 0.0f ? 4 : 0);
   float best = ANY_HIT ? nan_min(t_io[i], kTMax) : t_io[i];
-  // group: the winning record slot; row and stream: the winning gid.
-  int best_hit = -1;
+  int best_hit = -1;  // the winning gid
   int pend_b = 0, pend_c = 0;  // stream: the recorded leaf (cnt 0: none)
 
   int stack[WIDE_STACK_CAP];
@@ -237,38 +274,23 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
         if (!((need >> k) & 1u) || cnt[k] <= 0) continue;
-        if constexpr (MODE == kGroup) {
-          for (int s = ref[k]; s < ref[k] + cnt[k]; ++s) {
-            const float t =
-                tri_t(ox, oy, oz, dx, dy, dz, tri + 3 * s, t_min, best);
-            if (t < best) {
-              if (ANY_HIT) {
-                blocked[i] = true;
-                return;
-              }
-              best = t;
-              best_hit = s;
-            }
+        const int b0 = __ldg(bref + node * 8 + ((pm >> (3 * k)) & 7));
+        if constexpr (MODE == kRow) {
+          if (test_batches<ANY_HIT>(tbat, b0, cnt[k], ox, oy, oz, dx, dy, dz,
+                                    t_min, best, best_hit)) {
+            blocked[i] = true;
+            return;
           }
-        } else {
-          const int b0 = __ldg(bref + node * 8 + ((pm >> (3 * k)) & 7));
-          if constexpr (MODE == kRow) {
-            if (test_batches<ANY_HIT>(tbat, b0, cnt[k], ox, oy, oz, dx, dy, dz,
-                                      t_min, best, best_hit)) {
-              blocked[i] = true;
-              return;
-            }
-          } else {  // kStream: test the recorded leaf, record this one
-            if (pend_c > 0 &&
-                test_batches<ANY_HIT>(tbat, pend_b, pend_c, ox, oy, oz, dx, dy,
-                                      dz, t_min, best, best_hit)) {
-              blocked[i] = true;
-              return;
-            }
-            pend_b = b0;
-            pend_c = cnt[k];
-            prefetch_leaf(tbat, b0, pend_c);
+        } else {  // kStream: test the recorded leaf, record this one
+          if (pend_c > 0 &&
+              test_batches<ANY_HIT>(tbat, pend_b, pend_c, ox, oy, oz, dx, dy,
+                                    dz, t_min, best, best_hit)) {
+            blocked[i] = true;
+            return;
           }
+          pend_b = b0;
+          pend_c = cnt[k];
+          prefetch_leaf(tbat, b0, pend_c);
         }
       }
     }
@@ -287,21 +309,199 @@ __global__ void __launch_bounds__(kThreads)
   }
   if (!ANY_HIT && best_hit >= 0) {
     t_io[i] = best;
-    prim[i] = MODE == kGroup ? __ldg(tri_id + best_hit) : best_hit;
+    prim[i] = best_hit;
   }
 }
 
-template <bool ANY_HIT, bool QUANT, int MODE>
-int launch(const float* o, const float* d, float* t_io, int* prim,
-           bool* blocked, const void* child, const float* nbox, const int* perm,
-           const float* tri, const int* tri_id, const int* bref,
-           const float* tbat, int n, float t_min, cudaStream_t stream) {
-  const int blocks = (n + kThreads - 1) / kThreads;
-  wide_walk<ANY_HIT, QUANT, MODE><<<blocks, kThreads, 0, stream>>>(
-      o, d, t_io, prim, blocked, child, nbox, perm,
-      reinterpret_cast<const float4*>(tri), tri_id, bref,
-      reinterpret_cast<const float4*>(tbat), n, t_min);
-  return static_cast<int>(cudaGetLastError());
+// ---------------------------------------------------------------------------
+// group: the production schedule, redesigned to hide latency (the note at
+// the head of this file). kBatch is the number of a leaf's triangle
+// records loaded together before the first of them is tested. A build
+// with -DWIDE_GROUP_COUNTS (wide_walk_ab.py --counts) counts each ray's
+// pops and tests, to check them against the plain walk's.
+constexpr int kBatch = 8;
+
+#ifdef WIDE_GROUP_COUNTS
+// A counting build (wide_walk_ab.py --counts): each ray adds its pops and
+// triangle tests to these per-ray counters when they are set.
+__device__ long long* g_group_pops = nullptr;
+__device__ long long* g_group_tests = nullptr;
+#define WIDE_GROUP_COUNT(counter, i) \
+  if (counter) ++counter[i]
+#else
+#define WIDE_GROUP_COUNT(counter, i)
+#endif
+
+// a[i] for a register array and a lane-varying i, by selects: indexing the
+// array with i would move it to local memory.
+__device__ __forceinline__ int pick8(const int (&a)[8], int i) {
+  const int a01 = (i & 1) ? a[1] : a[0], a23 = (i & 1) ? a[3] : a[2];
+  const int a45 = (i & 1) ? a[5] : a[4], a67 = (i & 1) ? a[7] : a[6];
+  const int a03 = (i & 2) ? a23 : a01, a47 = (i & 2) ? a67 : a45;
+  return (i & 4) ? a47 : a03;
+}
+
+// Bit k of the result is bit (slot at position k of the order pm) of m: a
+// mask by child slot, permuted into the octant's near-first order.
+__device__ __forceinline__ unsigned by_order(unsigned m, int pm) {
+  unsigned r = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) r |= ((m >> ((pm >> (3 * k)) & 7)) & 1u) << k;
+  return r;
+}
+
+// Lowest set bit of a non-zero mask.
+__device__ __forceinline__ int lowest(unsigned m) {
+  return __ffs(static_cast<int>(m)) - 1;
+}
+
+// Closest hit and any hit under the group schedule: wide_walk's arguments,
+// with the record table (tri, tri_id) in place of the batch tables. Each
+// ray sees what the plain walk (kernels/traverse_wide.py, group) gives it:
+// the same pops in the same order, the children in its octant's near-first
+// order, a leaf's triangles in slot order against the running best t with
+// a strict < merge. What differs is when loads are issued and where state
+// lives:
+//   - a pop issues all its loads at once (the octant order, the 8 child
+//     records as 16-byte loads, the frame), slab-tests the children in slot
+//     order into masks, and applies the order to the masks in registers;
+//   - the nearest internal child that passed is the next node without a
+//     trip through the stack, and the rest are pushed far to near, before
+//     the leaf tests (which cannot change them);
+//   - the leaves of a pop run as one loop over a cursor (leaf mask, next
+//     slot, end slot); each turn loads up to kBatch records of the leaf,
+//     each load predicated on the leaf's own end, then tests them in order.
+template <bool ANY_HIT, bool QUANT>
+__global__ void __launch_bounds__(kThreads)
+    wide_group_walk(const float* __restrict__ o, const float* __restrict__ d,
+                    float* __restrict__ t_io, int* __restrict__ prim,
+                    bool* __restrict__ blocked, const void* __restrict__ child,
+                    const float* __restrict__ nbox, const int* __restrict__ perm,
+                    const float4* __restrict__ tri,
+                    const int* __restrict__ tri_id, int n, float t_min) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  if (ANY_HIT && blocked[i]) return;
+  const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
+  const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
+  const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
+  const int octant = (dx >= 0.0f ? 1 : 0) | (dy >= 0.0f ? 2 : 0) |
+                     (dz >= 0.0f ? 4 : 0);
+  float best = ANY_HIT ? nan_min(t_io[i], kTMax) : t_io[i];
+  int best_hit = -1;  // the winning record slot
+  int stack[WIDE_STACK_CAP];
+  int sp = 0;
+
+  int node = 0;
+  while (node >= 0) {
+    // The pop: every load issued together, the slab tests by slot.
+    WIDE_GROUP_COUNT(g_group_pops, i);
+    const int pm = __ldg(perm + node * 8 + octant);
+    int ref[8], cnt[8];
+    unsigned leaf = 0, inner = 0;  // children that passed, by slot
+    if constexpr (QUANT) {
+      const int4* cw = reinterpret_cast<const int4*>(child) + node * 6;
+      const float4* fr = reinterpret_cast<const float4*>(nbox) + node * 2;
+      int w[24];
+#pragma unroll
+      for (int j = 0; j < 6; ++j) {
+        const int4 v = __ldg(cw + j);
+        w[4 * j] = v.x;
+        w[4 * j + 1] = v.y;
+        w[4 * j + 2] = v.z;
+        w[4 * j + 3] = v.w;
+      }
+      const float4 f0 = __ldg(fr), f1 = __ldg(fr + 1);  // ox oy oz sx, sy sz
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int w0 = w[3 * c], w1 = w[3 * c + 1];
+        ref[c] = w[3 * c + 2];
+        cnt[c] = w0 >> 24;
+        const bool hit = slab(
+            ox, oy, oz, ix, iy, iz, t_min, best,
+            dequant(f0.x, w0 & 255, f0.w), dequant(f0.y, (w0 >> 8) & 255, f1.x),
+            dequant(f0.z, (w0 >> 16) & 255, f1.y), dequant(f0.x, w1 & 255, f0.w),
+            dequant(f0.y, (w1 >> 8) & 255, f1.x),
+            dequant(f0.z, (w1 >> 16) & 255, f1.y));
+        leaf |= (hit && cnt[c] > 0 ? 1u : 0u) << c;
+        inner |= (hit && cnt[c] == 0 && ref[c] > 0 ? 1u : 0u) << c;
+      }
+    } else {
+      const float4* cf = static_cast<const float4*>(child) + node * 16;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float4 a = __ldg(cf + 2 * c);      // lx ly lz hx
+        const float4 b = __ldg(cf + 2 * c + 1);  // hy hz ref cnt
+        ref[c] = static_cast<int>(b.z);
+        cnt[c] = static_cast<int>(b.w);
+        const bool hit =
+            slab(ox, oy, oz, ix, iy, iz, t_min, best, a.x, a.y, a.z, a.w, b.x, b.y);
+        leaf |= (hit && cnt[c] > 0 ? 1u : 0u) << c;
+        inner |= (hit && cnt[c] == 0 && ref[c] > 0 ? 1u : 0u) << c;
+      }
+    }
+
+    // The next node: the nearest internal child that passed, else the
+    // stack's top; the other internal children pushed far to near.
+    unsigned in_k = by_order(inner, pm);
+    if (in_k) {
+      node = pick8(ref, (pm >> (3 * lowest(in_k))) & 7);
+      for (in_k &= in_k - 1; in_k;) {
+        const int k = 31 - __clz(static_cast<int>(in_k));
+        in_k &= ~(1u << k);
+        stack[sp++] = pick8(ref, (pm >> (3 * k)) & 7);
+      }
+    } else {
+      node = sp > 0 ? stack[--sp] : -1;
+    }
+
+    // The leaves that passed, near first, as one loop over a cursor: lf_k
+    // (leaves not begun, by near-first position) and the slots [s, e) of
+    // the leaf under test.
+    unsigned lf_k = by_order(leaf, pm);
+    int s = 0, e = 0;
+    while (s < e || lf_k) {
+      if (s >= e) {
+        const int c8 = (pm >> (3 * lowest(lf_k))) & 7;
+        lf_k &= lf_k - 1;
+        s = pick8(ref, c8);
+        e = s + pick8(cnt, c8);
+      }
+      float4 ra[kBatch], rb[kBatch];
+      float rc[kBatch];  // e2.z, the only float of the third float4 read
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        if (s + j < e) {
+          const float4* rec = tri + 3 * (s + j);
+          ra[j] = __ldg(rec);
+          rb[j] = __ldg(rec + 1);
+          rc[j] = __ldg(reinterpret_cast<const float*>(rec + 2));
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        if (s + j < e) {
+          WIDE_GROUP_COUNT(g_group_tests, i);
+          const float t = tri_t_rec(ox, oy, oz, dx, dy, dz, ra[j], rb[j],
+                                    make_float4(rc[j], 0.0f, 0.0f, 0.0f),
+                                    t_min, best);
+          if (t < best) {
+            if (ANY_HIT) {
+              blocked[i] = true;
+              return;
+            }
+            best = t;
+            best_hit = s + j;
+          }
+        }
+      }
+      s += kBatch;
+    }
+  }
+  if (!ANY_HIT && best_hit >= 0) {
+    t_io[i] = best;
+    prim[i] = __ldg(tri_id + best_hit);
+  }
 }
 
 template <bool ANY_HIT, bool QUANT>
@@ -310,19 +510,46 @@ int launch_mode(int mode, const float* o, const float* d, float* t_io,
                 const int* perm, const float* tri, const int* tri_id,
                 const int* bref, const float* tbat, int n, float t_min,
                 cudaStream_t stream) {
-#define BLINK_WIDE_CASE(M)                                                   \
-  case M:                                                                    \
-    return launch<ANY_HIT, QUANT, M>(o, d, t_io, prim, blocked, child, nbox, \
-                                     perm, tri, tri_id, bref, tbat, n, t_min, \
-                                     stream);
+  const int blocks = (n + kThreads - 1) / kThreads;
+  const float4* tb = reinterpret_cast<const float4*>(tbat);
   switch (mode) {
-    BLINK_WIDE_CASE(kGroup)
-    BLINK_WIDE_CASE(kRow)
-    BLINK_WIDE_CASE(kStream)
-    BLINK_WIDE_CASE(kSkip)
+    case kGroup:
+      wide_group_walk<ANY_HIT, QUANT><<<blocks, kThreads, 0, stream>>>(
+          o, d, t_io, prim, blocked, child, nbox, perm,
+          reinterpret_cast<const float4*>(tri), tri_id, n, t_min);
+      break;
+    case kRow:
+      wide_walk<ANY_HIT, QUANT, kRow><<<blocks, kThreads, 0, stream>>>(
+          o, d, t_io, prim, blocked, child, nbox, perm, bref, tb, n, t_min);
+      break;
+    case kStream:
+      wide_walk<ANY_HIT, QUANT, kStream><<<blocks, kThreads, 0, stream>>>(
+          o, d, t_io, prim, blocked, child, nbox, perm, bref, tb, n, t_min);
+      break;
+    case kSkip:
+      wide_walk<ANY_HIT, QUANT, kSkip><<<blocks, kThreads, 0, stream>>>(
+          o, d, t_io, prim, blocked, child, nbox, perm, bref, tb, n, t_min);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef BLINK_WIDE_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel of variant (ANY_HIT, QUANT, mode), for the runtime's queries.
+template <bool ANY_HIT, bool QUANT>
+const void* kernel_of(int mode) {
+  switch (mode) {
+    case kGroup:
+      return reinterpret_cast<const void*>(&wide_group_walk<ANY_HIT, QUANT>);
+    case kRow:
+      return reinterpret_cast<const void*>(&wide_walk<ANY_HIT, QUANT, kRow>);
+    case kStream:
+      return reinterpret_cast<const void*>(&wide_walk<ANY_HIT, QUANT, kStream>);
+    case kSkip:
+      return reinterpret_cast<const void*>(&wide_walk<ANY_HIT, QUANT, kSkip>);
+  }
+  return nullptr;
 }
 
 }  // namespace
@@ -358,3 +585,36 @@ extern "C" int wide_walk_launch(int any_hit, int quant, int mode,
                                            nbox, perm, tri, tri_id, bref, tbat,
                                            n, t_min, stream);
 }
+
+// What the runtime reports of the variant's kernel: out[0] registers a
+// thread, out[1] local memory a thread in bytes (the stack and any
+// spills), out[2] resident blocks an SM (the occupancy calculator's
+// answer), out[3] threads a block. Returns a cudaError_t.
+extern "C" int wide_walk_attributes(int any_hit, int quant, int mode,
+                                    int* out) {
+  const void* f = any_hit ? (quant ? kernel_of<true, true>(mode)
+                                   : kernel_of<true, false>(mode))
+                          : (quant ? kernel_of<false, true>(mode)
+                                   : kernel_of<false, false>(mode));
+  if (f == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, f);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[3] = kThreads;
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], f, out[3], 0));
+}
+
+#ifdef WIDE_GROUP_COUNTS
+// Sets the counting build's per-ray counters ((n,) int64 each, or null to
+// stop counting). Returns a cudaError_t.
+extern "C" int wide_walk_set_counters(long long* pops, long long* tests) {
+  cudaError_t err = cudaMemcpyToSymbol(g_group_pops, &pops, sizeof(pops));
+  if (err == cudaSuccess) {
+    err = cudaMemcpyToSymbol(g_group_tests, &tests, sizeof(tests));
+  }
+  return static_cast<int>(err);
+}
+#endif

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 from pathlib import Path
 
@@ -54,6 +55,22 @@ def log_path(name: str) -> Path:
     """nvcc's output for the library of csrc/<name>.cu, with the -Xptxas -v
     register, shared-memory and spill summary."""
     return library_path(name).with_suffix(".log")
+
+
+def ptxas_spills(text: str) -> dict[str, int]:
+    """The bytes each kernel spills (stores plus loads), from ptxas's -v
+    report in nvcc's output `text`, by the kernel's mangled name. Device
+    functions that ptxas reports on their own are left out."""
+    entries, spills, name = set(), {}, None
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            entries.add(m.group(1))
+        elif m := re.search(r"Function properties for (\w+)", line):
+            name = m.group(1)
+        elif (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)) and name:
+            spills[name] = int(m.group(1)) + int(m.group(2))
+            name = None
+    return {k: v for k, v in spills.items() if k in entries}
 
 
 def load(name: str) -> ctypes.CDLL:

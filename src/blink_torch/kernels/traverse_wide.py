@@ -525,8 +525,25 @@ def _lib():
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.wide_walk_launch.argtypes = [i32] * 3 + [ptr] * 12 + [i32, f32, ptr]
         lib.wide_walk_launch.restype = i32
+        lib.wide_walk_attributes.argtypes = [i32, i32, i32, ptr]
+        lib.wide_walk_attributes.restype = i32
         lib._blink_typed = True
     return lib
+
+
+def kernel_attributes(any_hit: bool, leaf_mode: str, quant: bool, lib=None) -> dict:
+    """What the CUDA runtime reports of one variant's kernel: registers a
+    thread, local memory a thread (its stack and any spills), resident
+    blocks an SM, threads a block and resident warps an SM. `lib`: another
+    build of wide_walk.cu."""
+    lib = lib or _lib()
+    out = (ctypes.c_int * 4)()
+    err = lib.wide_walk_attributes(int(any_hit), int(quant), LEAF_MODES.index(leaf_mode),
+                                   ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"wide_walk_attributes failed: cudaError {err}")
+    return {"registers": out[0], "local_bytes": out[1], "blocks_per_sm": out[2],
+            "threads": out[3], "warps_per_sm": out[2] * out[3] // 32}
 
 
 def _launch(any_hit: bool, mode: str, o, d, c: WideChunk, out0, out1, t_min: float) -> None:
@@ -550,13 +567,13 @@ def _launch(any_hit: bool, mode: str, o, d, c: WideChunk, out0, out1, t_min: flo
     check_arg("perm", c.perm, torch.int32, (nw * 8,), dev)
     check_arg("tri", c.tri, torch.float32, (c.tri.shape[0], 12), dev)
     check_arg("tri_id", c.tri_id, torch.int32, (c.tri.shape[0],), dev)
-    aligned = [c.tri, c.child]
+    aligned = [c.tri, c.child] + ([c.nbox] if c.quant else [])
     if mode in ("row", "stream"):
         check_arg("bref", c.bref, torch.int32, (nw * 8,), dev)
         check_arg("tbat", c.tbat, torch.float32, (c.tbat.shape[0], 8, 16), dev)
         aligned.append(c.tbat)
     if any(x.data_ptr() % 16 for x in aligned):
-        raise ValueError("tri, child and tbat must be 16-byte aligned (read as float4)")
+        raise ValueError("tri, child, nbox and tbat must be 16-byte aligned (read as float4)")
     if n == 0:
         return
 
