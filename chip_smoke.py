@@ -41,7 +41,21 @@ Phases (each asserts; any failure exits non-zero):
                 checked (finite, non-zero vertex gradients, the albedo
                 finite-difference probe), with peak memory and one profiled
                 step.
-  9. leafmode — every variant of the wide walk on the same scene, over
+  9. config 4 — the sponza preset uncut (512x512, 16 spp, path depth 4,
+                spp_block 16, compact, rr_start 1) on the same scene and
+                backend: 4 x 3 closest and 4 x 3 any-hit launches, each
+                bounce's two calls against the plain walks bit for bit on
+                every 32nd ray and on all its live rays (t_far > 0), with
+                the live share, pops and tests a live ray, the walk's time
+                on the call's full inputs and its bound (live rays' work);
+                the image without compaction identical; 3 timed frames,
+                camera samples/s, peak memory and one profiled frame. Rows
+                1-2 of the kernels line gain the frame's launches and the
+                walks' summed time and bound (config4_*);
+ 10. config 5 — the pod preset's per-card unit (4096x512, 1 spp, depth 4,
+                compact, rr_start 1): launches, the first bounce's walks
+                against the plain ones on every 32nd ray, 3 timed frames;
+ 11. leafmode — every variant of the wide walk on the same scene, over
                 three layouts: (a) 150k-triangle chunks, wide leaves of 44,
                 quantized boxes, row tables; (b) build_chunked_wide's
                 defaults, 120k-triangle chunks, leaves of 32, f32 boxes,
@@ -60,7 +74,7 @@ Phases (each asserts; any failure exits non-zero):
                 control for group's redesign); and the
                 production backend under BLINK_LEAF_MODE=row (group
                 launches).
- 10. binary   — Sponza 1M in 9 packed SAH chunks of up to 120,000
+ 12. binary   — Sponza 1M in 9 packed SAH chunks of up to 120,000
                 triangles (leaf 16): the packed traversal drives the four
                 binary-walk entry points once; each against its plain
                 version on 65,536 primary rays (every 16th of the 1024x1024
@@ -69,21 +83,22 @@ Phases (each asserts; any failure exits non-zero):
                 chunked closest hit against the wide backend, with the
                 count of exact t ties; node visits and triangle tests per
                 ray from the plain versions, for the bound;
- 11. config 2 — the bunny (81,924 triangles) at 512x512, 4 spp, stochastic
+ 13. config 2 — the bunny (81,924 triangles) at 512x512, 4 spp, stochastic
                 direct, through backend 'bvh' and render(): 4 skip-link
                 closest and 4 any-hit launches, the kernels against their
                 plain versions on the frame's own rays, the image against
                 the wide backend's, the bunny golden through bvh, and frame
                 and walk times;
- 12. shard    — a one-rank NCCL group: scene-sharded traversal of the
+ 14. shard    — a one-rank NCCL group: scene-sharded traversal of the
                 1024x1024 frame's primary rays and their shadow rays over
                 build_sharded_chunks(tris, 1) (9 padded chunks), its two
                 kernels bit for bit equal to their plain versions there,
                 the result equal to the replicated packed traversal and to
                 the wide backend (up to exact t ties), with the walks'
                 times and the ordered closest hit's bound at that size;
- 13. dist     — on config 2 through bvh, dist_render equals render bit for
-                bit and dist_render_grad matches render_grad.
+ 15. dist     — on config 2 through bvh, dist_render equals render bit for
+                bit and dist_render_grad matches render_grad; with the path
+                integrator at depth 4, dist_render equals render bit for bit.
 Each main path is driven with the launch counts set to 0 just before it
 and read just after. The second-to-last line is {"kernels": [...]}, the
 last {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -372,14 +387,19 @@ def wide_table_bytes(chunks, seen, mode: str) -> tuple:
     return nodes * node_b + leaf_b, nodes, leaf_rows
 
 
-def wide_bound(name, chunks, mode, seen, pops, tests, n, t_far: bool, hits: int):
-    """(bound ms, bound_by) of a wide walk from its counted node pops (8
-    slab tests each) and triangle tests, against the bytes it must move:
-    the table rows it read once (wide_table_bytes), o and d (24 B) and
-    t_far (4 B) per ray, and t and prim (8 B) per ray and, in the group
-    mode, one tri_id per hit for closest hit, one flag byte for any hit."""
+def wide_bound(name, chunks, mode, seen, pops, tests, n, t_far: bool, hits: int,
+               n_read: int | None = None):
+    """(bound ms, bound_by) of a wide walk over n rays from its counted
+    node pops (8 slab tests each) and triangle tests, against the bytes it
+    must move: the table rows it read once (wide_table_bytes), o and d
+    (24 B) of each of the n_read rays that are walked (all n unless given:
+    a dead lane of a path bounce, t_far = 0, needs only its t_far), t_far
+    (4 B) per ray, and t and prim (8 B) per ray and, in the group mode, one
+    tri_id per hit for closest hit, one flag byte for any hit. `pops`,
+    `tests` and `seen` are those of the walked rays."""
+    n_read = n if n_read is None else n_read
     ops = int(pops.sum()) * 8 * OPS_SLAB + int(tests.sum()) * OPS_TRI
-    io = n * (24 + (4 if t_far else 0))
+    io = n_read * 24 + n * (4 if t_far else 0)
     if name.startswith("wide_closest"):
         io += n * 8 + (hits * 4 if mode == "group" else 0)
     else:
@@ -387,8 +407,9 @@ def wide_bound(name, chunks, mode, seen, pops, tests, n, t_far: bool, hits: int)
     tables, nodes, leaf_rows = wide_table_bytes(chunks, seen, mode)
     nbytes = tables + io
     ops_ms, bytes_ms = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
-    log(f"[bound] {name}: {int(pops.sum()) / n:.3f} pops/ray, {int(tests.sum()) / n:.3f} "
-        f"tri tests/ray, {ops:.4g} FP32 ops -> {ops_ms:.5f} ms; {nodes} distinct nodes and "
+    per = max(n_read, 1)
+    log(f"[bound] {name}: {int(pops.sum()) / per:.3f} pops/ray, {int(tests.sum()) / per:.3f} "
+        f"tri tests/ray{'' if n_read == n else f' over {n_read} of {n} rays'}, {ops:.4g} FP32 ops -> {ops_ms:.5f} ms; {nodes} distinct nodes and "
         f"{leaf_rows} distinct {'batches' if mode in ('row', 'stream') else 'slots'} read, "
         f"{nbytes} bytes -> {bytes_ms:.5f} ms")
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
@@ -478,6 +499,11 @@ def profile(fn, label: str, ref_ms: float) -> None:
         f"{1 - total / 1e3 / wall_ms:.3f}; estimate against the unprofiled mean "
         f"({ref_ms:.3f} ms): {1 - total / 1e3 / ref_ms:.3f}")
     for us, e in sorted(evs, key=lambda p: -p[0])[:12]:
+        log(f"[profile]   {us / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    ops = [(e.self_device_time_total, e) for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CPU and e.self_device_time_total > 0]
+    log(f"[profile] {label}: device time by the torch op that launched it")
+    for us, e in sorted(ops, key=lambda p: -p[0])[:10]:
         log(f"[profile]   {us / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
@@ -764,6 +790,163 @@ def phase_fwd_bwd(scene, backend, dev, size: int = WIDTH) -> None:
     profile(lambda: vg(geo), "fwd+bwd geometry", mg)
 
 
+# ------------------------------------------------------- path tracing
+
+
+#: Every STRIDE-th ray of each config-4 walk call is held to the plain walk
+#: (131,072 of a call's 4,194,304; a ray's output does not depend on the
+#: other rays), and its counts stand for the call's.
+STRIDE = 32
+
+
+def hold_bounce(any_hit, call, chunks, stride, label, tag):
+    """One recorded walk call of the path (o, d, t_far, out) against the
+    plain walk on every stride-th ray, dead lanes included, bit for bit.
+    Returns the max |error|."""
+    o, d, tf, out = call
+    sub = torch.arange(0, o.shape[0], stride, device=o.device)
+    rays = (o[sub].contiguous(), d[sub].contiguous(), tf[sub].contiguous())
+    part = out.index_select(0, sub) if any_hit else (out[0][sub], out[1][sub])
+    return hold_to_plain(any_hit, rays, chunks, "group", part, label, tag)[0]
+
+
+def live_walk(any_hit, call, chunks, label, tag):
+    """The plain walk on every live ray (t_far > 0) of a recorded walk call,
+    held bit for bit to the kernel's output there. Returns (pops, tests,
+    seen marks) of the live rays: the work the call cannot avoid, since a
+    dead lane's answer follows from its t_far alone."""
+    o, d, tf, out = call
+    live = torch.nonzero(tf > 0).squeeze(1)
+    rays = tuple(x.index_select(0, live) for x in (o, d, tf))
+    part = out.index_select(0, live) if any_hit else tuple(x.index_select(0, live) for x in out)
+    _, pops, tests, seen, _ = hold_to_plain(any_hit, rays, chunks, "group", part, label, tag)
+    return pops, tests, seen
+
+
+def path_bounces(rec, chunks, depth: int, stride: int, tag: str, time_reps: int = 3):
+    """Each bounce's closest-hit and any-hit call of a recorded path frame:
+    held bit for bit to the plain walks on every stride-th ray and on
+    every live ray; the live share, pops and tests a live ray, the time of
+    the wrapper re-run on the call's full inputs (CUDA events, `time_reps`
+    calls) and the bound (PERF.md §6's counting, over the live rays' pops,
+    tests, seen marks and o and d). Returns {name: {"err", "ms",
+    "bound_ms"}} summed over the bounces."""
+    out = {n: {"err": 0.0, "ms": 0.0, "bound_ms": 0.0} for n in ("wide_closest", "wide_anyhit")}
+    assert len(rec.calls["wide_closest"]) == depth and len(rec.calls["wide_anyhit"]) == depth
+    for b in range(depth):
+        for name in ("wide_closest", "wide_anyhit"):
+            any_hit = name == "wide_anyhit"
+            call = rec.calls[name][b]
+            o, d, tf, res = call
+            n = o.shape[0]
+            err = hold_bounce(any_hit, call, chunks, stride, f"bounce {b} {name}", tag)
+            pops, tests, seen = live_walk(any_hit, call, chunks, f"bounce {b} {name} live", tag)
+            ms = events_ms(lambda: walk(any_hit, (o, d, tf), chunks, "group"), time_reps)
+            hits = 0 if any_hit else int((res[1] >= 0).sum())
+            n_live = pops.numel()
+            bound, by = wide_bound(name, chunks, "group", seen, pops, tests, n, True, hits,
+                                   n_read=n_live)
+            share = n_live / n
+            pl = float(pops.sum()) / max(n_live, 1)
+            tl = float(tests.sum()) / max(n_live, 1)
+            log(f"[{tag}] bounce {b} {name}: {n} rays, live {share:.4f}, "
+                f"{pl:.3f} pops and {tl:.3f} tests a live ray (plain walk on all {n_live} "
+                f"live rays), {ms:.4f} ms, bound {bound:.5f} ms ({by}), {bound / ms:.4f} of it, "
+                f"{ms / max(n_live, 1) * 1e6:.3f} ns a live ray")
+            out[name]["err"] = max(out[name]["err"], err)
+            out[name]["ms"] += ms
+            out[name]["bound_ms"] += bound
+    return out
+
+
+def timed_frames(fn, reps: int = 3) -> list:
+    fn()
+    return [events_ms(fn, 1) for _ in range(reps)]
+
+
+def phase_config4(scene, backend, dev, size: int | None = None, stride: int = STRIDE,
+                  frames: int = 3):
+    """Config 4, the sponza preset uncut (512x512, 16 spp, path depth 4,
+    spp_block 16, compact, rr_start 1, stochastic, textured) on the 1M
+    scene through the production wide backend: one batch of 16 samples a
+    pixel, 4 bounces of 3 + 3 wide launches. Returns the walks' sums for
+    rows 1-2 (path_bounces) and the launches."""
+    cfg = get_config("sponza").override(width=size, height=size)
+    assert (cfg.spp, cfg.max_depth, cfg.spp_block, cfg.compact, cfg.rr_start) == (16, 4, 16, True, 1)
+    samples = cfg.width * cfg.height * cfg.spp
+    n_chunks = len(backend.chunks)
+    reset_launches()
+    with Recorder() as rec:
+        img = render(scene, cfg, device=dev, backend=backend)
+        torch.cuda.synchronize()
+    counts = launches()
+    log(f"[config4] sponza preset {cfg.width}x{cfg.height}, {cfg.spp} spp, depth {cfg.max_depth}, "
+        f"spp_block {cfg.spp_block}, compact, rr_start {cfg.rr_start}: launches {counts}")
+    walks = cfg.max_depth * n_chunks
+    assert counts == only(wide_closest=walks, wide_anyhit=walks), counts
+    assert all(c[0].shape[0] == samples for c in rec.calls["wide_closest"])  # one batch
+    img_np = img.cpu().numpy()
+    assert img_np.shape == (cfg.height, cfg.width, 3) and np.isfinite(img_np).all()
+    assert (img_np >= 0).all() and img_np.mean() > 0
+    sums = path_bounces(rec, backend.chunks, cfg.max_depth, stride, "config4")
+    del rec
+
+    img_plain = render(scene, cfg.override(compact=False), device=dev, backend=backend)
+    log(f"[config4] image mean {img_np.mean():.6f}; without compaction identical "
+        f"{torch.equal(img_plain, img)}")
+    assert torch.equal(img_plain, img)
+    del img_plain
+
+    frame = lambda: render(scene, cfg, device=dev, backend=backend)  # noqa: E731
+    t = timed_frames(frame, frames)
+    mean = sum(t) / len(t)
+    torch.cuda.reset_peak_memory_stats()
+    frame()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    walk_ms = sums["wide_closest"]["ms"] + sums["wide_anyhit"]["ms"]
+    log(f"[config4] frame ms {[round(x, 3) for x in t]}: mean {mean:.3f}, min {min(t):.3f}, "
+        f"max {max(t):.3f}; {samples / mean * 1e3:.5g} camera samples/s; walks {walk_ms:.3f} ms "
+        f"({walk_ms / mean:.4f} of the frame); peak memory {peak} bytes")
+    profile(frame, "config4 frame", mean)
+    for v in sums.values():
+        v["launches"] = walks
+    return sums
+
+
+def phase_config5(scene, backend, dev, width: int | None = None, height: int = 512,
+                  stride: int = STRIDE):
+    """Config 5's per-card unit as bench.py defines it: the pod preset at
+    4096x512 and 1 spp (the per-sample loop), path depth 4, compact,
+    rr_start 1; the first bounce's walks held to their plain versions on
+    every stride-th ray."""
+    cfg = get_config("pod").override(spp=1, height=height, width=width)
+    samples = cfg.width * cfg.height
+    n_chunks = len(backend.chunks)
+    reset_launches()
+    with Recorder() as rec:
+        img = render(scene, cfg, device=dev, backend=backend)
+        torch.cuda.synchronize()
+    counts = launches()
+    log(f"[config5] pod unit {cfg.width}x{cfg.height}, {cfg.spp} spp, depth {cfg.max_depth}: "
+        f"launches {counts}")
+    walks = cfg.max_depth * n_chunks
+    assert counts == only(wide_closest=walks, wide_anyhit=walks), counts
+    img = img.cpu().numpy()
+    assert img.shape == (cfg.height, cfg.width, 3) and np.isfinite(img).all()
+    assert (img >= 0).all() and img.mean() > 0
+    for name in ("wide_closest", "wide_anyhit"):
+        call = rec.calls[name][0]
+        hold_bounce(name == "wide_anyhit", call, backend.chunks, stride, f"bounce 0 {name}",
+                    "config5")
+    del rec
+    t = timed_frames(lambda: render(scene, cfg, device=dev, backend=backend))
+    mean = sum(t) / len(t)
+    log(f"[config5] frame ms {[round(x, 3) for x in t]}: mean {mean:.3f}, min {min(t):.3f}, "
+        f"max {max(t):.3f}; {samples / mean * 1e3:.5g} camera samples/s; image mean "
+        f"{img.mean():.6f}")
+
+
 # ------------------------------------------------------- leaf modes
 
 
@@ -793,7 +976,7 @@ def walk(any_hit, rays, chunks, mode):
     return tw.traverse_closest_wide(o, d, chunks, t_far=tf, leaf_mode=mode)
 
 
-def hold_to_plain(any_hit, rays, chunks, mode, out, label):
+def hold_to_plain(any_hit, rays, chunks, mode, out, label, tag: str = "leafmode"):
     """A wide walk's output `out` on `rays` (o, d, t_far) against its plain
     version under the same leaf schedule, bit for bit: t and prim, or the
     blocked flags. Returns (max |error|, pops, tests, seen marks, plain
@@ -817,7 +1000,7 @@ def hold_to_plain(any_hit, rays, chunks, mode, out, label):
     assert same, (label, err)
     what = (f"blocked {float(out.float().mean()):.4f}" if any_hit
             else f"hit {float((out[1] >= 0).float().mean()):.4f}")
-    log(f"[leafmode] {label}: {o.shape[0]} rays, {what}, identical to the plain walk "
+    log(f"[{tag}] {label}: {o.shape[0]} rays, {what}, identical to the plain walk "
         f"(max|d| {err:.3g}), plain {plain_ms:.1f} ms")
     return err, pops, tests, seen, plain_ms
 
@@ -1286,7 +1469,9 @@ def phase_shard(scene, backend, dev, size: int = WIDTH) -> dict:
 
 def phase_dist(scene, cfg, backend, dev) -> None:
     """dist_render and dist_render_grad on config 2 through bvh, on the
-    one-rank group, against render and render_grad."""
+    one-rank group, against render and render_grad; and dist_render against
+    render with the path integrator at depth 4 (the skip-link walks on
+    bounce rays)."""
     from blink_torch.dist.render import dist_render, dist_render_grad
 
     img = render(scene, cfg, device=dev, backend=backend)
@@ -1294,6 +1479,18 @@ def phase_dist(scene, cfg, backend, dev) -> None:
     log(f"[dist] dist_render {tuple(img_d.shape)}: identical to render "
         f"{torch.equal(img_d, img)}")
     assert torch.equal(img_d, img)
+    pcfg = cfg.override(integrator="path", max_depth=4)
+    reset_launches()
+    img_p = render(scene, pcfg, device=dev, backend=backend)
+    torch.cuda.synchronize()
+    counts = launches()
+    img_pd = dist_render(scene, pcfg, backend=backend, device=dev)
+    log(f"[dist] path depth 4 through bvh: launches {counts}; dist_render identical to "
+        f"render {torch.equal(img_pd, img_p)}, image mean {img_p.mean().item():.6f} (direct "
+        f"{img.mean().item():.6f})")
+    walks = pcfg.spp * pcfg.max_depth * len(backend.chunks)
+    assert counts == only(skip_closest=walks, skip_anyhit=walks), counts
+    assert torch.equal(img_pd, img_p) and torch.isfinite(img_p).all()
     names = ("albedo", "emission")
     target = torch.zeros_like(img)
     loss, g = render_grad(scene, cfg, target, names, device=dev, backend=backend)
@@ -1342,6 +1539,13 @@ def main() -> int:
     rows, frame_ms = phase_frame(scene, backend, cfg, dev, errs)
     profile(lambda: render(scene, cfg, device=dev, backend=backend), "frame", frame_ms)
     phase_fwd_bwd(scene, backend, dev)
+    config4 = phase_config4(scene, backend, dev)
+    for row in rows:
+        c4 = config4[row["name"]]
+        row["max_abs_err"] = max(row["max_abs_err"], c4["err"])
+        row.update(config4_launches=c4["launches"], config4_ms=c4["ms"],
+                   config4_bound_ms=c4["bound_ms"])
+    phase_config5(scene, backend, dev)
     rows.append(sphere_row)
     leafmode_rows = phase_leafmode(scene, backend, cfg, dev)
 

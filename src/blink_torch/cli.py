@@ -14,7 +14,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--width", type=int, default=None)
     p.add_argument("--height", type=int, default=None)
     p.add_argument("--spp", type=int, default=None)
-    p.add_argument("--integrator", default=None, choices=["primary", "direct"])
+    p.add_argument("--max-depth", dest="max_depth", type=int, default=None)
+    p.add_argument("--integrator", default=None, choices=["primary", "direct", "path"])
     p.add_argument("--backend", default=None,
                    choices=["auto", "brute", "bvh", "wide", "pallas"])
     p.add_argument("--seed", type=int, default=None)
@@ -34,6 +35,7 @@ def _load_cfg(args: argparse.Namespace):
         width=args.width,
         height=args.height,
         spp=args.spp,
+        max_depth=args.max_depth,
         integrator=args.integrator,
         backend=args.backend,
         seed=args.seed,

@@ -30,13 +30,23 @@ class RenderConfig:
     # Scene-size knobs (procedural builders).
     bunny_subdiv: int = 6
     sponza_tris: int = 1_000_000
+    compact: bool = False  # wavefront ray compaction between path bounces
+    # spp-interleaved packet block (render.api.tile_pixel_ids_spp): number
+    # of samples of one pixel packed consecutively inside a cull block, on
+    # the tiled wide backend. 0 = auto (4 when spp allows). Higher values
+    # trade pixel footprint for per-pixel sample clustering: at path
+    # bounces a block then covers fewer distinct hit-point clusters.
+    spp_block: int = 0
+    # Russian-roulette path termination: 0 = off; b >= rr_start applies
+    # survival p = clamp(max(throughput), 0.05, 1) with the standard
+    # unbiased 1/p reweighting (render.integrators.li_path). Killed lanes
+    # skip their walks through the dead-lane cull. Ignored in
+    # deterministic mode (goldens and FD need noise-free renders).
+    rr_start: int = 0
     # Fields read by parts of `blink` this package has not ported yet
     # (ROADMAP.md queue 1); kept so config JSON round-trips.
     soft_sigma: float = 0.0
     soft_mesh: bool = False
-    compact: bool = False
-    spp_block: int = 0
-    rr_start: int = 0
     ray_chunk: int = 0
     donate: bool = True
 

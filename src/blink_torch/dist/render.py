@@ -10,17 +10,32 @@ parameter gradients all-reduced (counterpart of `blink.dist.render`).
     then one all_reduce(SUM) per parameter.
 
 Every function here is collective over `group` (default: the default
-process group). `blink`'s `dryrun_step` waits for the path integrator
-(ROADMAP.md queue 1).
+process group), except dryrun_step, which spawns its own ranks.
 """
 from __future__ import annotations
 
+import os
+import tempfile
+import time
+
 import torch
 import torch.distributed as dist
+import torch.multiprocessing as mp
 
-from blink_torch.api import _leaf_params, _prepare, _target, merge_params
-from blink_torch.config import RenderConfig
+from blink_torch.api import (
+    _leaf_params,
+    _prepare,
+    _target,
+    build_scene,
+    extract_params,
+    merge_params,
+)
+from blink_torch.config import RenderConfig, get_config
+from blink_torch.core import sampler
+from blink_torch.dist.scene_shard import build_sharded_chunks, intersect_chunks_sharded
+from blink_torch.kernels.api import make_backend
 from blink_torch.render.api import render_rows
+from blink_torch.render.camera import generate_rays
 from blink_torch.scene.scene import Scene
 
 
@@ -82,3 +97,58 @@ def dist_fit_step(scene: Scene, cfg: RenderConfig, target, opt, params,
         p.grad = grads[k].to(p.device)
     opt.step()
     return loss
+
+
+def _dryrun_rank(rank: int, n: int, store_path: str) -> None:
+    """One rank of dryrun_step, on the CPU over gloo."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, n), rank=rank,
+                            world_size=n)
+    try:
+        h = max(16, n)
+        while h % n:
+            h += 1
+        cfg = get_config("pod").override(width=16, height=h, spp=1, max_depth=2,
+                                         sponza_tris=2_000, deterministic=True, backend="bvh")
+        scene = build_scene(cfg)
+        backend = make_backend(cfg.backend, scene)
+        target = dist_render(scene, cfg, backend, device="cpu")
+        params = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in extract_params(scene, ("albedo", "tri_verts")).items()}
+        opt = torch.optim.Adam(list(params.values()), lr=1e-2)
+        loss = dist_fit_step(scene, cfg, target, opt, params, backend, device="cpu")
+        assert torch.isfinite(loss), loss
+
+        # The scene-sharded walk on the same ranks: each walks its own
+        # Morton chunks with the ordered closest-hit walk.
+        chunks, meta = build_sharded_chunks(scene.triangles, n, chunk_tris=500)
+        o, d, _ = generate_rays(scene.camera, 16, 16, sampler.seed_key(0), 0, False)
+        t, prim = intersect_chunks_sharded(o.contiguous(), d, chunks, meta)
+        assert bool(torch.isfinite(t).all()) and bool((prim >= -1).all())
+    finally:
+        dist.destroy_process_group()
+
+
+def dryrun_step(n_devices: int) -> None:
+    """One full sharded training step on tiny shapes over `n_devices` gloo
+    ranks on the CPU, spawned here: the `pod` preset at 16 x h, 1 spp,
+    depth 2, 2,000 triangles, deterministic, through `bvh` (the path
+    integrator with NEE shadow rays, gradients of albedo and tri_verts
+    all-reduced, one Adam step, a finite loss), then the scene-sharded
+    closest hit over build_sharded_chunks(tris, n_devices, 500) on 16x16
+    primary rays. Raises if a rank fails or the ranks take over 600 s."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(_dryrun_rank,
+                                 args=(n_devices, os.path.join(tmp, "store")),
+                                 nprocs=n_devices, join=False, start_method="spawn")
+        deadline = time.monotonic() + 600.0
+        try:
+            # join() returns when one more rank ends, and raises if it failed.
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(
+                        f"dryrun_step: {n_devices} ranks did not finish in 600 s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()

@@ -1,11 +1,14 @@
 """Rendering pipeline: an image from a Scene + RenderConfig (counterpart of
-`blink.render.api`, direct lighting at one sample per loop step).
+`blink.render.api`).
 
 Rays are generated in tile order: 64x64-pixel tiles, each made of 32x32
 blocks, so consecutive rays (the threads of a warp) are neighbouring
-pixels and walk the same part of the BVH. The image does not depend on
-the order, because every random stream is keyed by absolute pixel and
-block id.
+pixels and walk the same part of the BVH. On the wide backend at spp >= 4,
+render_image packs sb samples of each pixel next to each other instead
+(tile_pixel_ids_spp), sb * H * W rays a batch. The radiance does not
+depend on the order, because every random stream is keyed by absolute
+pixel, block and sample id; only the f32 sum over samples runs in another
+order.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import torch
 from blink_torch.config import RenderConfig
 from blink_torch.core import sampler
 from blink_torch.render.camera import generate_rays
-from blink_torch.render.integrators import INTEGRATORS
+from blink_torch.render.integrators import INTEGRATORS, li_path
 from blink_torch.scene.scene import Scene
 from blink_torch.scene.shade import pack_tri_shade
 
@@ -27,13 +30,16 @@ _TILE_PIXELS = 32 * 128
 _BLOCK_PIXELS = 8 * 128
 
 
-def render_rays(o, d, keys, scene: Scene, backend, integrator: str,
-                deterministic: bool = False) -> torch.Tensor:
+def render_rays(o, d, keys, scene: Scene, backend, integrator: str, max_depth: int = 4,
+                deterministic: bool = False, compact: bool = False,
+                rr_start: int = 0) -> torch.Tensor:
     """Radiance (N, 3) for an arbitrary ray batch."""
+    if integrator == "path":
+        return li_path(o, d, keys, scene, backend, max_depth, deterministic, compact,
+                       rr_start=rr_start)
     if integrator not in INTEGRATORS:
-        raise NotImplementedError(
-            f"integrator '{integrator}' is not ported yet (ROADMAP.md queue 1)"
-        )
+        raise KeyError(f"unknown integrator '{integrator}'; "
+                       f"choices: {sorted([*INTEGRATORS, 'path'])}")
     return INTEGRATORS[integrator](o, d, keys, scene, backend, deterministic)
 
 
@@ -79,9 +85,11 @@ def tile_pixel_ids(h: int, w: int, th: int, tw: int, device=None) -> torch.Tenso
     return r * w + c
 
 
-def untile_image(acc: torch.Tensor, h: int, w: int, th: int, tw: int) -> torch.Tensor:
-    """Invert tile_pixel_ids ordering: (h*w, 3) tile order -> (h, w, 3)."""
-    blk = _block_shape(th, tw)
+def untile_image(acc: torch.Tensor, h: int, w: int, th: int, tw: int,
+                 blk=None) -> torch.Tensor:
+    """Invert tile_pixel_ids ordering: (h*w, 3) tile order -> (h, w, 3).
+    `blk` overrides the sub-block shape (the spp-interleaved layout)."""
+    blk = _block_shape(th, tw) if blk is None else blk
     if blk is None:
         v = acc.reshape(h // th, w // tw, th, tw, 3)
         return v.permute(0, 2, 1, 3, 4).reshape(h, w, 3)
@@ -90,20 +98,93 @@ def untile_image(acc: torch.Tensor, h: int, w: int, th: int, tw: int) -> torch.T
     return v.permute(0, 2, 4, 1, 3, 5, 6).reshape(h, w, 3)
 
 
+def tile_pixel_ids_spp(h: int, w: int, sb: int, device=None):
+    """(pixel_id, sample_idx), each (h*w*sb,) int64, for spp-interleaved
+    packets: each 4096-ray tile carries a square patch of 4096/sb pixels x
+    sb samples, and each 1024-ray block a square patch of 1024/sb pixels x
+    sb samples. Consecutive sb rays are the sb samples of one pixel (fold
+    with .reshape(-1, sb, 3).sum(1))."""
+    ps = math.isqrt(_TILE_PIXELS // sb)  # tile pixel-patch side
+    gs = math.isqrt(_BLOCK_PIXELS // sb)  # block pixel-patch side
+    if ps * ps * sb != _TILE_PIXELS or gs * gs * sb != _BLOCK_PIXELS:
+        raise ValueError(f"spp block {sb} does not make square patches")
+    if h % ps or w % ps:
+        raise ValueError(f"image {h}x{w} does not tile by {ps}x{ps} patches")
+    q = torch.arange(h * w * sb, dtype=torch.int64, device=device)
+    tile = q // _TILE_PIXELS
+    within = q % _TILE_PIXELS
+    b = within // _BLOCK_PIXELS
+    sub = within % _BLOCK_PIXELS
+    p = sub // sb
+    s = sub % sb
+    nbc = ps // gs  # blocks per tile side
+    ntc = w // ps
+    r = (tile // ntc) * ps + (b // nbc) * gs + p // gs
+    c = (tile % ntc) * ps + (b % nbc) * gs + p % gs
+    return r * w + c, s
+
+
+def _spp_block(cfg: RenderConfig, backend, tile) -> int:
+    """Samples a pixel packed into one batch: spp_block (4, 16 or 64) when
+    it divides spp, else 4 when that does, on the tiled wide backend with
+    32 | H and 32 | W; else 1 (the per-sample loop)."""
+    h, w, spp = cfg.height, cfg.width, cfg.spp
+    if backend.name != "wide" or tile is None or h % 32 or w % 32:
+        return 1
+    want = cfg.spp_block or 4
+    if want in (4, 16, 64) and spp % want == 0:
+        return want
+    return 4 if spp % 4 == 0 else 1
+
+
+def _with_shade(scene: Scene, backend):
+    """Static geometry and no table yet (the brute backend): pack it once,
+    in the graph. With geom_dirty, refine gathers vertices live instead."""
+    if scene.n_triangles > 0 and backend.shade is None and not scene.geom_dirty:
+        backend = dataclasses.replace(backend, shade=pack_tri_shade(scene.triangles))
+    return backend
+
+
+def _radiance(o, d, keys, scene: Scene, cfg: RenderConfig, backend) -> torch.Tensor:
+    return render_rays(o, d, keys, scene, backend, cfg.integrator, cfg.max_depth,
+                       cfg.deterministic, cfg.compact, cfg.rr_start)
+
+
 def render_image(scene: Scene, cfg: RenderConfig, backend) -> torch.Tensor:
-    """Accumulated (H, W, 3) radiance image on the scene's device."""
-    return render_rows(scene, cfg, backend, 0, cfg.height)
+    """Accumulated (H, W, 3) radiance image on the scene's device.
+
+    On the tiled wide backend at spp >= 4 the samples go sb at a time
+    (_spp_block), H * W * sb rays a batch; else one sample a loop step, as
+    render_rows."""
+    h, w, spp = cfg.height, cfg.width, cfg.spp
+    sb = _spp_block(cfg, backend, _tile_shape(h, w))
+    if sb == 1:
+        return render_rows(scene, cfg, backend, 0, h)
+    backend = _with_shade(scene, backend)
+    dev = scene.device
+    root = sampler.seed_key(cfg.seed, device=dev)
+    pid, sidx = tile_pixel_ids_spp(h, w, sb, device=dev)
+    jitter = cfg.jitter and not cfg.deterministic
+    acc = torch.zeros((h * w, 3), dtype=torch.float32, device=dev)
+    for bi in range(spp // sb):
+        o, d, keys = generate_rays(scene.camera, h, w, root, sidx + bi * sb, jitter,
+                                   pixel_id=pid)
+        li = _radiance(o, d, keys, scene, cfg, backend)
+        acc = acc + li.reshape(-1, sb, 3).sum(1)
+    ps = math.isqrt(_TILE_PIXELS // sb)
+    gs = math.isqrt(_BLOCK_PIXELS // sb)
+    return untile_image(acc / spp, h, w, ps, ps, blk=(gs, gs))
 
 
 def render_rows(scene: Scene, cfg: RenderConfig, backend, row0: int,
                 rows: int) -> torch.Tensor:
-    """Image rows [row0, row0 + rows) of the (H, W) frame, (rows, W, 3).
-    Rays are keyed by absolute pixel id, so the rows equal the same rows of
-    render_image bit for bit."""
-    # Static geometry and no table yet (the brute backend): pack it once, in
-    # the graph. With geom_dirty, refine gathers vertices live instead.
-    if scene.n_triangles > 0 and backend.shade is None and not scene.geom_dirty:
-        backend = dataclasses.replace(backend, shade=pack_tri_shade(scene.triangles))
+    """Image rows [row0, row0 + rows) of the (H, W) frame, (rows, W, 3), one
+    sample a loop step. Rays are keyed by absolute pixel id, so the rows
+    equal the same rows of render_image bit for bit wherever render_image
+    loops sample by sample too (_spp_block 1: any backend but wide, spp
+    not a multiple of 4, or H or W not a multiple of 32); else they differ
+    only by the order of the f32 sum over samples."""
+    backend = _with_shade(scene, backend)
     w = cfg.width
     dev = scene.device
     root = sampler.seed_key(cfg.seed, device=dev)
@@ -117,9 +198,7 @@ def render_rows(scene: Scene, cfg: RenderConfig, backend, row0: int,
     for s in range(cfg.spp):
         o, d, keys = generate_rays(scene.camera, cfg.height, w, root, s, jitter,
                                    pixel_id=pid)
-        acc = acc + render_rays(
-            o, d, keys, scene, backend, cfg.integrator, cfg.deterministic
-        )
+        acc = acc + _radiance(o, d, keys, scene, cfg, backend)
     acc = acc / cfg.spp
     if tile is not None:
         return untile_image(acc, rows, w, *tile)

@@ -1,22 +1,32 @@
-"""Direct-lighting integrator with next-event estimation (counterpart of
-the direct half of `blink.render.integrators`; path tracing comes with a
-later slice, ROADMAP.md queue 1).
+"""Integrators: direct lighting and depth-k path tracing with next-event
+estimation (counterpart of `blink.render.integrators`).
 
-Emission counts on camera-visible emitters; each hit adds one NEE sample
-(uniform light choice, area sampling) tested by one shadow ray.
+Both are branchless over the ray batch (alive masks, not control flow)
+and take an intersection `Backend`, so one estimator runs against every
+traversal. Emission counts on camera-visible emitters only; every path
+vertex adds one NEE sample (uniform light choice, area sampling) tested
+by one shadow ray.
 """
 from __future__ import annotations
 
 import torch
 
 from blink_torch.core import sampler, vec
-from blink_torch.diff.brdf import INV_PI
+from blink_torch.diff.brdf import INV_PI, sample_cosine
 from blink_torch.diff.hitrefine import HitGeom, refine
+from blink_torch.render.wavefront import compaction_order
 from blink_torch.sampling.lights import pack_light_rows, sample_light_point
 from blink_torch.scene.scene import Scene
 
 #: normal offset applied to shadow ray origins.
 RAY_EPS = 1e-3
+
+#: Bounce-wavefront dead-lane cull: li_path passes its alive mask to the
+#: closest hit, so dead lanes (escaped or zero-throughput paths) skip the
+#: walk (t_far = 0 on wide) instead of re-tracing their stale ray. Exact:
+#: dead lanes were always masked out of the radiance. Always on; it mirrors
+#: blink's switch so that test_path_dead_lane_cull_exact can turn it off.
+CULL_DEAD = True
 
 #: Stochastic NEE light samples are drawn per 4x32-pixel image block (the
 #: block stream of the ray keys), so neighbouring shadow rays aim at one
@@ -96,4 +106,64 @@ def li_direct(o, d, keys, scene: Scene, backend, deterministic: bool = False):
     )
 
 
+def li_path(o, d, keys, scene: Scene, backend, max_depth: int = 4,
+            deterministic: bool = False, compact: bool = False, rr_start: int = 0):
+    """Path tracing to `max_depth` bounces with NEE at each vertex (config 4).
+
+    The whole batch is carried bounce by bounce with an alive mask. With
+    `compact`, the carried state is permuted between bounces
+    (render.wavefront) and the radiance scattered back to ray order at the
+    end; the keys travel with the rays, so the image does not change.
+
+    rr_start > 0 (ignored when deterministic): Russian roulette at the end
+    of every bounce b >= rr_start, survival p = clamp(max(beta), 0.05, 1)
+    and the survivors' throughput divided by p (unbiased)."""
+    n = o.shape[0]
+    use_rr = rr_start > 0 and not deterministic
+    beta = torch.ones((n, 3), dtype=torch.float32, device=d.device)
+    radiance = torch.zeros((n, 3), dtype=torch.float32, device=d.device)
+    alive = torch.ones((n,), dtype=torch.bool, device=d.device)
+    ray_ix = torch.arange(n, device=d.device)
+    for b in range(max_depth):
+        hit = backend.intersect(o, d, scene, alive=alive if CULL_DEAD else None)
+        geom = refine(o, d, hit, scene, shade=backend.shade)
+        alive = alive & geom.valid
+
+        # Camera-visible emitters only (NEE covers emitters hit later).
+        if b == 0:
+            radiance = radiance + torch.where(alive[:, None], geom.emission, 0.0)
+        nee = nee_direct(scene, geom, keys, backend, bounce=b, deterministic=deterministic)
+        radiance = radiance + torch.where(alive[:, None], beta * nee, 0.0)
+
+        # Cosine-sample the next direction: f * cos / pdf = albedo exactly.
+        bk = sampler.bounce_key(keys[:, :2], b)
+        u = sampler.uniform(bk, 2, dim=1)
+        new_d = sample_cosine(geom.n, u[:, 0], u[:, 1])
+        new_o = geom.p + geom.n * RAY_EPS
+        beta = beta * geom.albedo
+        # Kill paths of (near) zero throughput (emitters have albedo 0).
+        alive = alive & (torch.amax(beta, dim=1) > 1e-5)
+        if use_rr and b >= rr_start:
+            # Dim 2 of the bounce stream (dims 0 and 1: NEE, the bounce).
+            u_rr = sampler.uniform(bk, 1, dim=2)[:, 0]
+            p = torch.clamp(torch.amax(beta, dim=1), 0.05, 1.0)
+            beta = beta * (1.0 / p)[:, None]
+            alive = alive & (u_rr < p)
+        o = torch.where(alive[:, None], new_o, o)
+        d = torch.where(alive[:, None], new_d, d)
+
+        if compact:
+            perm = compaction_order(alive, o, d)
+            o, d, beta, radiance, alive, keys, ray_ix = (
+                x.index_select(0, perm)
+                for x in (o, d, beta, radiance, alive, keys, ray_ix))
+    if compact:
+        # Back to ray order: gather through the inverse permutation.
+        inv = torch.empty_like(ray_ix).index_copy_(0, ray_ix, torch.arange(n, device=d.device))
+        radiance = radiance.index_select(0, inv)
+    return radiance
+
+
+#: The one-bounce integrators; render_rays calls li_path ("path") itself,
+#: since it takes the depth, compaction and roulette arguments too.
 INTEGRATORS = {"primary": li_direct, "direct": li_direct}

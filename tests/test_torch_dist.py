@@ -14,6 +14,8 @@ blink, builds the inputs, loads what each rank saved and compares
   - dist_render at 2 and 4 ranks equals render bit for bit (Cornell 32x32,
     deterministic, brute);
   - dist_render_grad matches render_grad and blink's jax.grad;
+  - (test_torch_dryrun.py) the same two calls on another configuration,
+    given to the ranks in inputs.pt;
   - a height that does not divide by the world size raises.
 In process: a one-rank group (render --dist 1, dist_fit_step), and
 init_distributed without torchrun's variables.
@@ -60,7 +62,9 @@ def _tris(verts, idx) -> Triangles:
 
 def _rank_main(rank: int, world: int, path: str) -> None:
     """One rank: run every distributed function on the saved inputs and
-    save what it returns to rank<r>.pt."""
+    save what it returns to rank<r>.pt. The inputs may name another
+    configuration to render, as "config": (preset, overrides), with its
+    "names" and "target"; CFG, NAMES and a zero image otherwise."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(os.path.join(path, "store"), world),
                             rank=rank, world_size=world)
@@ -85,10 +89,14 @@ def _rank_main(rank: int, world: int, path: str) -> None:
                 dist_render(build_scene(uneven), uneven, device="cpu")
             except ValueError as e:
                 out["uneven"] = str(e)
-        scene = build_scene(CFG)
-        out["image"] = dist_render(scene, CFG, device="cpu")
-        out["loss"], g = dist_render_grad(scene, CFG, torch.zeros(32, 32, 3), NAMES,
-                                          device="cpu")
+        cfg, names, target = CFG, NAMES, torch.zeros(32, 32, 3)
+        if "config" in inp:
+            preset, overrides = inp["config"]
+            cfg = get_config(preset).override(**overrides)
+            names, target = tuple(inp["names"]), inp["target"]
+        scene = build_scene(cfg)
+        out["image"] = dist_render(scene, cfg, device="cpu")
+        out["loss"], g = dist_render_grad(scene, cfg, target, names, device="cpu")
         out.update({f"g_{k}": v for k, v in g.items()})
         torch.save(out, os.path.join(path, f"rank{rank}.pt"))
     finally:
