@@ -6,8 +6,9 @@ against their plain torch versions.
 
 Phases (each asserts; any failure exits non-zero):
   1. build    — compile src/blink_torch/csrc/{wide_walk,sphere_pass,
-                binary_walk}.cu with nvcc, in parallel, and print ptxas's
-                register, shared-memory and spill summaries;
+                binary_walk}.cu and binary_walk.cu's counting build
+                (-DSKIP_WALK_COUNTS) with nvcc, in parallel, and print
+                ptxas's register, shared-memory and spill summaries;
   2. sphere   — the sphere kernel against its plain version on the 65,536
                 primary rays of Cornell at 256x256 plus 65,536 random rays,
                 with 8 and 64 spheres and a duplicated set (tied minima),
@@ -82,13 +83,17 @@ Phases (each asserts; any failure exits non-zero):
                 towards the first light with a third of t_far 0; the
                 chunked closest hit against the wide backend, with the
                 count of exact t ties; node visits and triangle tests per
-                ray from the plain versions, for the bound;
+                ray from the plain versions, for the bound; the ordered
+                walks' registers, spills and resident warps an SM;
  13. config 2 — the bunny (81,924 triangles) at 512x512, 4 spp, stochastic
                 direct, through backend 'bvh' and render(): 4 skip-link
                 closest and 4 any-hit launches, the kernels against their
-                plain versions on the frame's own rays, the image against
-                the wide backend's, the bunny golden through bvh, and frame
-                and walk times;
+                plain versions on the frame's own rays, and the counting
+                build's node visits and triangle tests against the plain
+                walk's ray for ray there, with its warp turns and SIMT
+                efficiency; the image against the wide backend's, the bunny
+                golden through bvh, frame and walk times, and the skip-link
+                walks' registers, spills and resident warps an SM;
  14. shard    — a one-rank NCCL group: scene-sharded traversal of the
                 1024x1024 frame's primary rays and their shadow rays over
                 build_sharded_chunks(tris, 1) (9 padded chunks), its two
@@ -98,7 +103,12 @@ Phases (each asserts; any failure exits non-zero):
                 times and the ordered closest hit's bound at that size;
  15. dist     — on config 2 through bvh, dist_render equals render bit for
                 bit and dist_render_grad matches render_grad; with the path
-                integrator at depth 4, dist_render equals render bit for bit.
+                integrator at depth 4, dist_render equals render bit for
+                bit, and each of the frame's 16 + 16 skip-link calls is held
+                bit for bit to the plain walk on all its rays, with the
+                counting build on sample 0's calls, each call's time and
+                its bound over live lanes. The skip-link rows of the
+                kernels line gain path_launches, path_ms and path_bound_ms.
 Each main path is driven with the launch counts set to 0 just before it
 and read just after. The second-to-last line is {"kernels": [...]}, the
 last {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -261,12 +271,14 @@ def only(**counts) -> dict:
 
 
 def phase_build() -> None:
-    """One nvcc per source, all started together."""
+    """One nvcc per source, and one for binary_walk.cu's counting build, all
+    started together."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        for _ in pool.map(_build.load, KERNELS):
+    builds = [(k, ()) for k in KERNELS] + [("binary_walk", tp.COUNTS_DEFINES)]
+    with ThreadPoolExecutor(len(builds)) as pool:
+        for _ in pool.map(lambda b: _build.load(*b), builds):
             pass
-    log(f"[build] {', '.join(_build.library_path(k).name for k in KERNELS)} in "
+    log(f"[build] {', '.join(_build.library_path(*b).name for b in builds)} in "
         f"{time.perf_counter() - t0:.2f} s")
     for k in KERNELS:
         for line in _build.log_path(k).read_text().splitlines():
@@ -281,6 +293,19 @@ def group_kernel_facts(any_hit: bool) -> dict:
     spills = _build.ptxas_spills(_build.log_path("wide_walk").read_text())
     [spill] = [v for k, v in spills.items() if f"15wide_group_walkILb{int(any_hit)}ELb1E" in k]
     a = tw.kernel_attributes(any_hit, "group", True)
+    return {"registers": a["registers"], "spill_bytes": spill, "local_bytes": a["local_bytes"],
+            "warps_per_sm": a["warps_per_sm"]}
+
+
+def binary_kernel_facts(kind: str) -> dict:
+    """Registers, local memory and resident warps an SM (the runtime) and
+    spilled bytes (ptxas) of a binary walk's kernel: skip_walk<any_hit> or
+    ordered_walk<any_hit>."""
+    spills = _build.ptxas_spills(_build.log_path("binary_walk").read_text())
+    walk = "9skip_walk" if kind.startswith("skip") else "12ordered_walk"
+    [spill] = [v for k, v in spills.items()
+               if f"{walk}ILb{int(kind.endswith('anyhit'))}E" in k]
+    a = tp.kernel_attributes(kind)
     return {"registers": a["registers"], "spill_bytes": spill, "local_bytes": a["local_bytes"],
             "warps_per_sm": a["warps_per_sm"]}
 
@@ -1148,22 +1173,28 @@ def walked_table_bytes(seen, ordered: bool) -> tuple:
     return nodes * (24 + (20 if ordered else 12)) + slots * 36, nodes, slots
 
 
-def binary_bound(name, seen, pops, tests, n, t_far: bool, hits: int):
+def binary_bound(name, seen, pops, tests, n, t_far: bool, hits: int,
+                 n_read: int | None = None):
     """(bound ms, bound_by) of a binary walk from its counted node visits
     (one slab test each) and triangle tests, against the bytes it must
-    move: the table rows it read once, o and d (24 B) and t_far (4 B) per
-    ray, and t, prim (8 B) and one tri_id per hit for closest hit, one flag
-    byte for any hit."""
+    move: the table rows it read once, o and d (24 B) of each of the n_read
+    rays that are walked (all n unless given: a lane at t_far = 0 needs
+    only its t_far), t_far (4 B) per ray, and t, prim (8 B) per ray and one
+    tri_id per hit for closest hit, one flag byte for any hit. `pops`,
+    `tests` and `seen` are those of the walked rays."""
+    n_read = n if n_read is None else n_read
     ops = int(pops.sum()) * OPS_SLAB + int(tests.sum()) * OPS_TRI
-    io = n * (24 + (4 if t_far else 0))
+    io = n_read * 24 + n * (4 if t_far else 0)
     io += n * 8 + hits * 4 if name.endswith("closest") else n
     tables, nodes, slots = walked_table_bytes(seen, name.startswith("ordered"))
     nbytes = tables + io
     ops_ms, bytes_ms = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
-    log(f"[bound] {name}: {int(pops.sum()) / n:.3f} node visits/ray, "
-        f"{int(tests.sum()) / n:.3f} tri tests/ray, {ops:.4g} FP32 ops -> {ops_ms:.5f} ms; "
-        f"{nodes} distinct nodes and {slots} distinct slots read, {nbytes} bytes -> "
-        f"{bytes_ms:.5f} ms")
+    per = max(n_read, 1)
+    log(f"[bound] {name}: {int(pops.sum()) / per:.3f} node visits/ray, "
+        f"{int(tests.sum()) / per:.3f} tri tests/ray"
+        f"{'' if n_read == n else f' over {n_read} of {n} rays'}, {ops:.4g} FP32 ops -> "
+        f"{ops_ms:.5f} ms; {nodes} distinct nodes and {slots} distinct slots read, {nbytes} "
+        f"bytes -> {bytes_ms:.5f} ms")
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
 
 
@@ -1223,6 +1254,19 @@ def check_binary(kind, o, d, chunks, t_far, label):
     return ref[-2], ref[-1], seen, out, err
 
 
+def check_skip_counts(o, d, chunks, t_far, any_hit, out, visits, tests, label, tag) -> None:
+    """The counting build of the skip-link walk on rays (o, d, t_far): its
+    output equal to the kernel's `out` and its node visits and triangle
+    tests equal to the plain walk's `visits` and `tests`, ray for ray; logs
+    its warp turns and SIMT efficiency."""
+    got, v, t, turns, lanes = tp.skip_walk_counts(o, d, chunks, t_far=t_far, any_hit=any_hit)
+    same_out = torch.equal(got, out) if any_hit else all(map(torch.equal, got, out))
+    assert same_out and torch.equal(v, visits) and torch.equal(t, tests), label
+    nt, nl = int(turns.sum()), int(lanes.sum())
+    log(f"[{tag}] {label}: the counting build's visits and tests equal the plain walk's on "
+        f"all {o.shape[0]} rays; {nt} warp turns, SIMT efficiency {nl / max(32 * nt, 1):.4f}")
+
+
 def compare_with_wide(t, prim, t_w, prim_w, label) -> int:
     """A binary closest hit against the wide walk's: t within 1e-6, prim
     equal except where two triangles tie exactly in t. Returns the ties."""
@@ -1235,16 +1279,9 @@ def compare_with_wide(t, prim, t_w, prim_w, label) -> int:
     return ties
 
 
-def phase_binary(scene, backend, dev, chunk_tris: int = tw.CHUNK_TRIS):
-    """The packed traversal of Sponza 1M in 9 chunks of up to 120,000
-    triangles: each entry point against its plain version; returns the
-    ordered walks' rows."""
-    t0 = time.perf_counter()
-    chunks = [c.to(dev) for c in tp.build_chunked_packed(scene.triangles, chunk_tris=chunk_tris)]
-    log(f"[binary] {len(chunks)} packed chunks, leaf 16, {sum(c.n_nodes for c in chunks)} "
-        f"nodes, built in {time.perf_counter() - t0:.1f} s")
-    assert len(chunks) == -(-scene.n_triangles // chunk_tris)
-    assert all(c.leaf_size == 16 for c in chunks)
+def binary_rays(scene, dev):
+    """The binary walks' rays on Sponza: 65,536 primary rays (every 16th of
+    the 1024x1024 frame) and 65,536 random rays inside the scene's box."""
     pid = render_api.tile_pixel_ids(HEIGHT, WIDTH, *render_api._tile_shape(HEIGHT, WIDTH),
                                     device=dev)[::16]
     o_cam, d_cam, _ = generate_rays(scene.camera, HEIGHT, WIDTH, sampler.seed_key(0, dev), 0,
@@ -1256,6 +1293,20 @@ def phase_binary(scene, backend, dev, chunk_tris: int = tw.CHUNK_TRIS):
     d_rnd /= np.linalg.norm(d_rnd, axis=1, keepdims=True)
     o = torch.cat([o_cam, torch.from_numpy(o_rnd).to(dev)]).contiguous()
     d = torch.cat([d_cam, torch.from_numpy(d_rnd).to(dev)]).contiguous()
+    return o, d
+
+
+def phase_binary(scene, backend, dev, chunk_tris: int = tw.CHUNK_TRIS):
+    """The packed traversal of Sponza 1M in 9 chunks of up to 120,000
+    triangles: each entry point against its plain version; returns the
+    ordered walks' rows."""
+    t0 = time.perf_counter()
+    chunks = [c.to(dev) for c in tp.build_chunked_packed(scene.triangles, chunk_tris=chunk_tris)]
+    log(f"[binary] {len(chunks)} packed chunks, leaf 16, {sum(c.n_nodes for c in chunks)} "
+        f"nodes, built in {time.perf_counter() - t0:.1f} s")
+    assert len(chunks) == -(-scene.n_triangles // chunk_tris)
+    assert all(c.leaf_size == 16 for c in chunks)
+    o, d = binary_rays(scene, dev)
 
     # The packed traversal's path: each entry point once, through the
     # wrappers a caller uses, with the counts set to 0 just before.
@@ -1301,7 +1352,7 @@ def phase_binary(scene, backend, dev, chunk_tris: int = tw.CHUNK_TRIS):
             "name": kind, "route": "cuda", "source": BINARY_SOURCE,
             "replaces": BINARY_REPLACES[kind], "launches": counts[kind], "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": None,
+            "library_ms": None, **binary_kernel_facts(kind),
         })
     return rows
 
@@ -1334,19 +1385,23 @@ def phase_config2(dev, size: int | None = None, subdiv: int | None = None):
     # The kernels on the frame's own rays, against the plain versions.
     stats = {"skip_closest": [], "skip_anyhit": []}
     errs = {"skip_closest": 0.0, "skip_anyhit": 0.0}
-    for o, d, variant, out in rec.calls["packed_closest"]:
+    for k, (o, d, variant, out) in enumerate(rec.calls["packed_closest"]):
         seen = []
         t_p, p_p, pops, tests = tp.skip_walk_plain(o, d, backend.chunks, counts=True, seen=seen)
         assert variant == "skip" and torch.equal(out[0], t_p) and torch.equal(out[1], p_p)
         errs["skip_closest"] = max(errs["skip_closest"], max_abs_err(out, (t_p, p_p)))
         stats["skip_closest"].append((pops, tests, seen, int((p_p >= 0).sum())))
-    for o, d, t_far, variant, out in rec.calls["packed_anyhit"]:
+        check_skip_counts(o, d, backend.chunks, None, False, out, pops, tests,
+                          f"skip_closest, primary rays of sample {k}", "config2")
+    for k, (o, d, t_far, variant, out) in enumerate(rec.calls["packed_anyhit"]):
         seen = []
         b_p, pops, tests = tp.skip_walk_plain(o, d, backend.chunks, t_far=t_far,
                                               any_hit=True, counts=True, seen=seen)
         assert variant == "skip" and torch.equal(out, b_p)
         errs["skip_anyhit"] = max(errs["skip_anyhit"], max_abs_err(out, b_p))
         stats["skip_anyhit"].append((pops, tests, seen, 0))
+        check_skip_counts(o, d, backend.chunks, t_far, True, out, pops, tests,
+                          f"skip_anyhit, shadow rays of sample {k}", "config2")
     log(f"[config2] {len(rec.calls['packed_closest'])} closest and "
         f"{len(rec.calls['packed_anyhit'])} any-hit calls identical to the plain versions")
 
@@ -1398,7 +1453,7 @@ def phase_config2(dev, size: int | None = None, subdiv: int | None = None):
             "name": kind, "route": "cuda", "source": BINARY_SOURCE,
             "replaces": BINARY_REPLACES[kind], "launches": counts[kind],
             "max_abs_err": errs[kind], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by, "library_ms": None,
+            "bound_by": by, "library_ms": None, **binary_kernel_facts(kind),
         })
     return rows, (scene, cfg, backend)
 
@@ -1467,11 +1522,64 @@ def phase_shard(scene, backend, dev, size: int = WIDTH) -> dict:
     return errs
 
 
-def phase_dist(scene, cfg, backend, dev) -> None:
+def path_walks(rec, chunks, depth: int) -> dict:
+    """The skip-link walks of a recorded path frame through bvh: every call
+    held bit for bit to skip_walk_plain on all its rays; the counting build
+    held to the plain walk's visits and tests on sample 0's call of each
+    bounce; each call's time (the wrapper re-run on the call's inputs, CUDA
+    events, 3 calls) and bound. The bound counts live lanes (t_far > 0; a
+    closest-hit call through bvh takes no t_far, so all its lanes are live)
+    as phase_config4's does: their visits, tests and o and d, and t_far and
+    the output of every lane; the rows read are the full call's, since a
+    dead lane reads only the root, which every live lane reads too.
+    Returns {kind: {"launches", "err", "ms", "bound_ms"}} over the calls."""
+    out = {k: {"launches": 0, "err": 0.0, "ms": 0.0, "bound_ms": 0.0} for k in
+           ("skip_closest", "skip_anyhit")}
+    calls = {"skip_closest": [(o, d, None, res) for o, d, _, res in rec.calls["packed_closest"]],
+             "skip_anyhit": [(o, d, tf, res) for o, d, tf, _, res in rec.calls["packed_anyhit"]]}
+    for kind, recorded in calls.items():
+        any_hit = kind == "skip_anyhit"
+        for k, (o, d, tf, res) in enumerate(recorded):
+            sample, bounce = divmod(k, depth)
+            seen = []
+            ref = tp.skip_walk_plain(o, d, chunks, t_far=tf, any_hit=any_hit, counts=True,
+                                     seen=seen)
+            pops, tests = ref[-2], ref[-1]
+            same = torch.equal(res, ref[0]) if any_hit else all(map(torch.equal, res, ref[:2]))
+            err = max_abs_err(res, ref[0] if any_hit else ref[:2])
+            assert same, (kind, sample, bounce, err)
+            if sample == 0:
+                check_skip_counts(o, d, chunks, tf, any_hit, res, pops, tests,
+                                  f"{kind}, bounce {bounce}", "dist")
+            live = torch.ones_like(pops, dtype=torch.bool) if tf is None else tf > 0
+            n, n_live = o.shape[0], int(live.sum())
+            hits = 0 if any_hit else int((ref[1] >= 0).sum())
+            bound, by = binary_bound(kind, seen, pops[live], tests[live], n, tf is not None,
+                                     hits, n_read=n_live)
+            ms = events_ms(lambda: (tp.traverse_anyhit_packed(o, d, chunks, tf) if any_hit
+                                    else tp.traverse_closest_packed(o, d, chunks,
+                                                                    variant="skip")), 3)
+            what = (f"blocked {float(res.float().mean()):.4f}" if any_hit
+                    else f"hit {float((res[1] >= 0).float().mean()):.4f}")
+            log(f"[dist] sample {sample} bounce {bounce} {kind}: {n} rays, live "
+                f"{n_live / n:.4f}, {what}, identical to the plain walk; "
+                f"{float(pops[live].sum()) / max(n_live, 1):.3f} visits and "
+                f"{float(tests[live].sum()) / max(n_live, 1):.3f} tests a live ray, "
+                f"{ms:.4f} ms, bound {bound:.5f} ms ({by}), {bound / ms:.4f} of it")
+            o_ = out[kind]
+            o_["launches"] += len(chunks)
+            o_["err"] = max(o_["err"], err)
+            o_["ms"] += ms
+            o_["bound_ms"] += bound
+    return out
+
+
+def phase_dist(scene, cfg, backend, dev) -> dict:
     """dist_render and dist_render_grad on config 2 through bvh, on the
     one-rank group, against render and render_grad; and dist_render against
     render with the path integrator at depth 4 (the skip-link walks on
-    bounce rays)."""
+    bounce rays), whose 16 + 16 walk calls path_walks holds and times.
+    Returns path_walks's result."""
     from blink_torch.dist.render import dist_render, dist_render_grad
 
     img = render(scene, cfg, device=dev, backend=backend)
@@ -1481,8 +1589,9 @@ def phase_dist(scene, cfg, backend, dev) -> None:
     assert torch.equal(img_d, img)
     pcfg = cfg.override(integrator="path", max_depth=4)
     reset_launches()
-    img_p = render(scene, pcfg, device=dev, backend=backend)
-    torch.cuda.synchronize()
+    with Recorder() as rec:
+        img_p = render(scene, pcfg, device=dev, backend=backend)
+        torch.cuda.synchronize()
     counts = launches()
     img_pd = dist_render(scene, pcfg, backend=backend, device=dev)
     log(f"[dist] path depth 4 through bvh: launches {counts}; dist_render identical to "
@@ -1491,6 +1600,8 @@ def phase_dist(scene, cfg, backend, dev) -> None:
     walks = pcfg.spp * pcfg.max_depth * len(backend.chunks)
     assert counts == only(skip_closest=walks, skip_anyhit=walks), counts
     assert torch.equal(img_pd, img_p) and torch.isfinite(img_p).all()
+    path = path_walks(rec, backend.chunks, pcfg.max_depth)
+    log(f"[dist] path walks: " + json.dumps(path))
     names = ("albedo", "emission")
     target = torch.zeros_like(img)
     loss, g = render_grad(scene, cfg, target, names, device=dev, backend=backend)
@@ -1503,6 +1614,7 @@ def phase_dist(scene, cfg, backend, dev) -> None:
             f"max|g| {scale:.3g}")
         assert torch.isfinite(g_d[n]).all() and scale > 0, n
         assert torch.allclose(g_d[n], g[n], rtol=GRAD_RTOL, atol=GRAD_ATOL_SHARE * scale), n
+    return path
 
 
 def main() -> int:
@@ -1558,12 +1670,16 @@ def main() -> int:
     mesh.init_single_rank("nccl")
     try:
         shard_errs = phase_shard(scene, backend, dev)
-        phase_dist(*config2, dev)
+        path = phase_dist(*config2, dev)
     finally:
         mesh.close()
 
     for row in rows:
         row["max_abs_err"] = max(row["max_abs_err"], shard_errs.get(row["name"], 0.0))
+        if row["name"] in path:
+            p = path[row["name"]]
+            row["max_abs_err"] = max(row["max_abs_err"], p["err"])
+            row.update(path_launches=p["launches"], path_ms=p["ms"], path_bound_ms=p["bound_ms"])
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))

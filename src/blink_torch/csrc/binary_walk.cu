@@ -38,12 +38,15 @@
 // Build with -fmad=false -prec-div=true -prec-sqrt=true -ftz=false and
 // without --use_fast_math (kernels/_build.py).
 //
-// What bounds it on the H100: the FP32 work of one slab test per node
-// visit and of the triangle tests, and the scattered 64-byte node reads and
-// 48-byte triangle reads; the tables stay in global memory (a 120,000-
-// triangle chunk's are ~8 MB, the 50 MB L2 holds several chunks). This
-// first version does nothing more about it: no shared-memory staging, no
-// packets, no persistent threads, and a divergent per-ray loop.
+// What bounds it on the H100. Not the FP32 work of the slab and triangle
+// tests, nor the bytes: the tables stay in global memory (a 120,000-
+// triangle chunk's are ~8 MB, the 50 MB L2 holds several chunks) and each
+// call reads them at a few percent of the card's rate. A walk waits on
+// chains of dependent loads (a node's record, then its slab test, then the
+// next node's address) and on lanes that diverge: a ray's walk is a chain
+// of some 80 node visits and 80 triangle tests on config 2. ordered_walk
+// is the first port, unchanged: a divergent per-ray loop with a nested
+// leaf loop. skip_walk is redesigned against both (below).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -134,14 +137,129 @@ __device__ __forceinline__ Ray load_ray(const float* o, const float* d, int i) {
   return r;
 }
 
+// ---------------------------------------------------------------------------
+// skip_walk: the skip-link walk, redesigned for Hopper. Each ray makes the
+// plain walk's node visits and triangle tests in the plain walk's order
+// (kernels/traverse_packed.py::skip_walk_plain); what the design changes is
+// how a warp's lanes share its turns and when a leaf's loads are issued:
+//   - a leaf is lane state, the slots [s, e) still to test, and the walk is
+//     one loop: each turn is, lane by lane, one node step or one leaf
+//     batch, so a lane that reaches a leaf no longer holds the warp's other
+//     lanes in a leaf loop of their own;
+//   - a leaf batch loads kBatch records together, each load predicated on
+//     the leaf's end, then tests them in slot order against the running
+//     best t, so a leaf's second load does not wait on its first test.
+// kBatch = 2 was the fastest of 1, 2, 3, 4 and 8 (PERF.md §6): each
+// record held in registers costs nine of them, and above 2 the registers
+// cost more warps an SM than the loads in flight gave back. Issuing node
+// cur + 1's loads with node cur's slab test, and stepping a warp's lanes
+// in order of their position, were slower and are not done.
+// A build with -DSKIP_WALK_COUNTS (kernels/traverse_packed.py::
+// skip_walk_counts) counts each ray's node visits and triangle tests, and
+// each warp's turns of each kind (node step, leaf batch) and the lanes that
+// take part in them (__activemask, as the warp runs them).
+constexpr int kBatch = 2;
+
+#ifdef SKIP_WALK_COUNTS
+// Per-ray (visits, tests) and per-warp (turns, lanes) counters, each (n,)
+// or (ceil(n / 32),) int64, or null when not counting.
+__device__ long long* g_skip_visits = nullptr;
+__device__ long long* g_skip_tests = nullptr;
+__device__ long long* g_skip_turns = nullptr;
+__device__ long long* g_skip_lanes = nullptr;
+#define SKIP_COUNT(counter, i, v) \
+  if (counter) counter[i] += (v)
+// One warp turn of the branch that the calling lanes run together.
+#define SKIP_COUNT_TURN(i)                                      \
+  {                                                             \
+    const unsigned m = __activemask();                          \
+    if ((threadIdx.x & 31) == __ffs(static_cast<int>(m)) - 1) { \
+      SKIP_COUNT(g_skip_turns, (i) >> 5, 1);                    \
+      SKIP_COUNT(g_skip_lanes, (i) >> 5, __popc(m));            \
+    }                                                           \
+  }
+#else
+#define SKIP_COUNT(counter, i, v)
+#define SKIP_COUNT_TURN(i)
+#endif
+
+// tri_t on a record already in registers: a = (v0, e1.x), b = (e1.yz,
+// e2.xy), c = e2.z; the same arithmetic in the same order.
+__device__ __forceinline__ float tri_t_rec(const Ray& r, float4 a, float4 b,
+                                           float c, float t_min,
+                                           float t_max) {
+  const float v0x = a.x, v0y = a.y, v0z = a.z;
+  const float e1x = a.w, e1y = b.x, e1z = b.y;
+  const float e2x = b.z, e2y = b.w, e2z = c;
+  const float px = r.dy * e2z - r.dz * e2y;
+  const float py = r.dz * e2x - r.dx * e2z;
+  const float pz = r.dx * e2y - r.dy * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const bool degen = det == 0.0f;
+  const float inv = 1.0f / (degen ? 1.0f : det);
+  const float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
+  const float u = (tx * px + ty * py + tz * pz) * inv;
+  const float qx = ty * e1z - tz * e1y;
+  const float qy = tz * e1x - tx * e1z;
+  const float qz = tx * e1y - ty * e1x;
+  const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv;
+  const float t = (e2x * qx + e2y * qy + e2z * qz) * inv;
+  const bool valid = !degen && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
+                     t >= t_min && t <= t_max;
+  return valid ? t : kTMax;
+}
+
+// One leaf batch of ray i: the records of slots [s, min(s + kBatch, e))
+// loaded together, then tested in slot order against the running best t
+// with a strict < merge; an any hit stops at its first hit. Advances s.
+template <bool ANY_HIT>
+__device__ __forceinline__ void leaf_batch(const Ray& r,
+                                           const float4* __restrict__ tri,
+                                           int i, float t_min, int& s, int e,
+                                           float& best, int& best_slot,
+                                           bool& hit) {
+  float4 ra[kBatch], rb[kBatch];
+  float rc[kBatch];  // e2.z, the only float of the third float4 read
+#pragma unroll
+  for (int j = 0; j < kBatch; ++j) {
+    if (s + j < e) {
+      const float4* rec = tri + 3 * (s + j);
+      ra[j] = __ldg(rec);
+      rb[j] = __ldg(rec + 1);
+      rc[j] = __ldg(reinterpret_cast<const float*>(rec + 2));
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kBatch; ++j) {
+    if (s + j < e && !hit) {
+      SKIP_COUNT(g_skip_tests, i, 1);
+      const float t = tri_t_rec(r, ra[j], rb[j], rc[j], t_min, best);
+      if (t < best) {
+        if (ANY_HIT) {
+          hit = true;
+        } else {
+          best = t;
+          best_slot = s + j;
+        }
+      }
+    }
+  }
+  s += kBatch;
+}
+
 // box: (n_nodes, 8) f32 as float4 pairs (lo.xyz, 0), (hi.xyz, 0); node:
 // (n_nodes, 8) i32 as int4 pairs (skip, first, count, rchild), (axis,
 // lower_first, 0, 0). Closest hit: t_io/prim hold the best so far and are
 // updated where this chunk has a nearer hit. Any hit: t_io is t_far, and
 // blocked is set where a hit lies in [t_min, min(t_far, T_MAX)); rays
 // already blocked by an earlier chunk do no work.
+//
+// __launch_bounds__'s floor of one block an SM changes no limit (the
+// kernel fits 9 or more) but changes ptxas's choice: 56 registers instead
+// of 48 (any hit) and 54 (closest); any hit ran 4-15% faster with it,
+// closest within 3% either way (PERF.md §6).
 template <bool ANY_HIT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     skip_walk(const float* __restrict__ o, const float* __restrict__ d,
               float* __restrict__ t_io, int* __restrict__ prim,
               bool* __restrict__ blocked, const float4* __restrict__ box,
@@ -149,23 +267,30 @@ __global__ void __launch_bounds__(kThreads)
               const int* __restrict__ tri_id, int n, int n_nodes,
               float t_min) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  if (ANY_HIT && blocked[i]) return;
+  if (i >= n || (ANY_HIT && blocked[i])) return;
   const Ray r = load_ray(o, d, i);
   float best = ANY_HIT ? nan_min(t_io[i], kTMax) : t_io[i];
-  int best_slot = -1;
-  int cur = 0;
-  while (cur < n_nodes) {
-    const int4 m = __ldg(node + 2 * cur);
-    const bool need = slab(r.ox, r.oy, r.oz, r.ix, r.iy, r.iz, t_min, best,
-                           __ldg(box + 2 * cur), __ldg(box + 2 * cur + 1));
-    if (need && m.z > 0 &&
-        leaf<ANY_HIT>(r, tri, m.y, m.z, t_min, best, best_slot)) {
-      blocked[i] = true;
-      return;
+  int best_slot = -1, cur = 0, s = 0, e = 0;
+  bool hit = false;  // any hit: blocked in this chunk
+  while (s < e || cur < n_nodes) {
+    if (s < e) {
+      SKIP_COUNT_TURN(i);
+      leaf_batch<ANY_HIT>(r, tri, i, t_min, s, e, best, best_slot, hit);
+      if (hit) break;
+    } else {
+      SKIP_COUNT_TURN(i);
+      SKIP_COUNT(g_skip_visits, i, 1);
+      const int4 m = __ldg(node + 2 * cur);
+      const bool need = slab(r.ox, r.oy, r.oz, r.ix, r.iy, r.iz, t_min, best,
+                             __ldg(box + 2 * cur), __ldg(box + 2 * cur + 1));
+      if (need && m.z > 0) {
+        s = m.y;
+        e = s + m.z;
+      }
+      cur = need ? cur + 1 : m.x;
     }
-    cur = need ? cur + 1 : m.x;
   }
+  if (ANY_HIT && hit) blocked[i] = true;
   if (!ANY_HIT && best_slot >= 0) {
     t_io[i] = best;
     prim[i] = __ldg(tri_id + best_slot);
@@ -235,6 +360,12 @@ int launch(const float* o, const float* d, float* t_io, int* prim,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool ANY_HIT>
+const void* kernel_of(int ordered) {
+  return ordered ? reinterpret_cast<const void*>(&ordered_walk<ANY_HIT>)
+                 : reinterpret_cast<const void*>(&skip_walk<ANY_HIT>);
+}
+
 }  // namespace
 
 // o, d: (n, 3) f32; t: (n,) f32 best t, in/out; prim: (n,) i32, in/out;
@@ -276,3 +407,41 @@ extern "C" int ordered_anyhit(const float* o, const float* d,
                              blocked, box, node, tri, tri_id, n, n_nodes,
                              t_min, stream);
 }
+
+// What the runtime reports of one kernel (ordered or skip, any_hit or
+// closest): out[0] registers a thread, out[1] local memory a thread in
+// bytes (the ordered walk's stack and any spills), out[2] resident blocks
+// an SM (the occupancy calculator's answer), out[3] threads a block.
+// Returns a cudaError_t.
+extern "C" int binary_walk_attributes(int ordered, int any_hit, int* out) {
+  const void* f = any_hit ? kernel_of<true>(ordered) : kernel_of<false>(ordered);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, f);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[3] = kThreads;
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], f, out[3], 0));
+}
+
+#ifdef SKIP_WALK_COUNTS
+// Sets the counting build's counters: per ray (n,) int64 node visits and
+// triangle tests, per warp (ceil(n / 32),) int64 loop turns and lanes that
+// stepped, summed over launches; null pointers stop counting. Returns a
+// cudaError_t.
+extern "C" int skip_walk_set_counters(long long* visits, long long* tests,
+                                      long long* turns, long long* lanes) {
+  cudaError_t err = cudaMemcpyToSymbol(g_skip_visits, &visits, sizeof(visits));
+  if (err == cudaSuccess) {
+    err = cudaMemcpyToSymbol(g_skip_tests, &tests, sizeof(tests));
+  }
+  if (err == cudaSuccess) {
+    err = cudaMemcpyToSymbol(g_skip_turns, &turns, sizeof(turns));
+  }
+  if (err == cudaSuccess) {
+    err = cudaMemcpyToSymbol(g_skip_lanes, &lanes, sizeof(lanes));
+  }
+  return static_cast<int>(err);
+}
+#endif

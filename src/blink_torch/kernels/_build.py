@@ -45,16 +45,20 @@ def nvcc_path() -> str:
     )
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, defines: tuple[str, ...] = ()) -> Path:
+    """The library of csrc/<name>.cu built with `defines` (nvcc -D flags,
+    such as a counting build's), keyed by the source, the flags and the
+    defines."""
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    flags = " ".join([*NVCC_FLAGS, *(f"-D{x}" for x in defines)])
+    h = hashlib.sha256(src.read_bytes() + flags.encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def log_path(name: str) -> Path:
+def log_path(name: str, defines: tuple[str, ...] = ()) -> Path:
     """nvcc's output for the library of csrc/<name>.cu, with the -Xptxas -v
     register, shared-memory and spill summary."""
-    return library_path(name).with_suffix(".log")
+    return library_path(name, defines).with_suffix(".log")
 
 
 def ptxas_spills(text: str) -> dict[str, int]:
@@ -73,23 +77,26 @@ def ptxas_spills(text: str) -> dict[str, int]:
     return {k: v for k, v in spills.items() if k in entries}
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built first if needed."""
-    if name not in _LOADED:
-        out = library_path(name)
+def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu built with `defines`, built
+    first if needed."""
+    key = " ".join((name, *defines))
+    if key not in _LOADED:
+        out = library_path(name, defines)
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            cmd = [nvcc_path(), *NVCC_FLAGS, *(f"-D{x}" for x in defines), "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
             proc = subprocess.run(cmd, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
             if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)
                 raise RuntimeError(f"nvcc failed for {name}.cu:\n{' '.join(cmd)}\n{proc.stdout}")
-            log_path(name).write_text(proc.stdout)
+            log_path(name, defines).write_text(proc.stdout)
             os.replace(tmp, out)
-        _LOADED[name] = ctypes.CDLL(str(out))
-    return _LOADED[name]
+        _LOADED[key] = ctypes.CDLL(str(out))
+    return _LOADED[key]
 
 
 def check_arg(name: str, x, dtype, shape, device) -> None:

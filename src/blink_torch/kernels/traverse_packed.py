@@ -370,23 +370,56 @@ def ordered_walk_plain(o, d, chunks, t_far=None, any_hit: bool = False,
 # --------------------------------------------------------------------------
 
 
-def _lib():
-    from blink_torch.kernels import _build
+#: The -D flag of binary_walk.cu's counting build (skip_walk_counts).
+COUNTS_DEFINES = ("SKIP_WALK_COUNTS",)
 
-    lib = _build.load("binary_walk")
+
+def typed(lib):
+    """`lib`, a loaded build of binary_walk.cu (this tree's or another
+    checkout's), with its entry points' argument types set."""
     if not getattr(lib, "_blink_typed", False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         for k in LAUNCHES:
             fn = getattr(lib, k)
             fn.argtypes = [ptr] * 8 + [i32, i32, f32, ptr]
             fn.restype = i32
+        for k, args in (("binary_walk_attributes", [i32, i32, ptr]),
+                        ("skip_walk_set_counters", [ptr] * 4)):
+            if hasattr(lib, k):
+                getattr(lib, k).argtypes = args
+                getattr(lib, k).restype = i32
         lib._blink_typed = True
     return lib
 
 
-def _launch(kind: str, o, d, c: PackedBVH, out0, out1, t_min: float) -> None:
+def _lib(defines: tuple[str, ...] = ()):
+    """binary_walk.cu's library built with `defines`, typed."""
+    from blink_torch.kernels import _build
+
+    return typed(_build.load("binary_walk", defines))
+
+
+def kernel_attributes(kind: str, lib=None) -> dict:
+    """What the CUDA runtime reports of entry point `kind`'s kernel
+    (skip_closest, ...): registers a thread, local memory a thread (the
+    ordered walk's stack and any spills), resident blocks an SM, threads a
+    block and resident warps an SM. `lib`: another build of
+    binary_walk.cu."""
+    lib = lib or _lib()
+    out = (ctypes.c_int * 4)()
+    err = lib.binary_walk_attributes(int(kind.startswith("ordered")),
+                                     int(kind.endswith("anyhit")), ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"binary_walk_attributes failed: cudaError {err}")
+    return {"registers": out[0], "local_bytes": out[1], "blocks_per_sm": out[2],
+            "threads": out[3], "warps_per_sm": out[2] * out[3] // 32}
+
+
+def _launch(kind: str, o, d, c: PackedBVH, out0, out1, t_min: float, lib=None) -> None:
     """One kernel launch over one chunk. Closest: out0 = t (in/out), out1 =
-    prim (in/out). Any hit: out0 = t_far, out1 = blocked (in/out)."""
+    prim (in/out). Any hit: out0 = t_far, out1 = blocked (in/out). `lib`:
+    another build of binary_walk.cu, whose launches LAUNCHES does not
+    count."""
     n = o.shape[0]
     dev = o.device
     check_arg("o", o, torch.float32, (n, 3), dev)
@@ -407,13 +440,14 @@ def _launch(kind: str, o, d, c: PackedBVH, out0, out1, t_min: float) -> None:
             raise ValueError(f"{name} must be 16-byte aligned (read as float4/int4)")
     if n == 0:
         return
-    err = getattr(_lib(), kind)(
+    err = getattr(lib or _lib(), kind)(
         o.data_ptr(), d.data_ptr(), out0.data_ptr(), out1.data_ptr(),
         c.box.data_ptr(), c.node.data_ptr(), c.tri.data_ptr(), c.tri_id.data_ptr(),
         n, nn, t_min, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kind} launch failed: cudaError {err}")
-    LAUNCHES[kind] += 1
+    if lib is None:
+        LAUNCHES[kind] += 1
 
 
 def _is_ordered(variant: str, any_hit: bool) -> bool:
@@ -433,15 +467,18 @@ def traverse_closest_packed(o, d, bvh, t_far=None, variant: str = CLOSEST_VARIAN
     ordered = _is_ordered(variant, False)
     if not o.is_cuda:
         return _closest_plain(o, d, bvh, t_far, T_MIN, ordered, False)
+    return _closest_kernel("ordered_closest" if ordered else "skip_closest", o, d, bvh, t_far)
+
+
+def _closest_kernel(kind: str, o, d, bvh, t_far, lib=None):
     n = o.shape[0]
     t = torch.full((n,), T_MAX, dtype=torch.float32, device=o.device)
     if t_far is not None:
         t = torch.minimum(t_far.to(torch.float32), t).contiguous()
     prim = torch.full((n,), -1, dtype=torch.int32, device=o.device)
     o, d = o.contiguous(), d.contiguous()
-    kind = "ordered_closest" if ordered else "skip_closest"
     for c in _as_list(bvh):
-        _launch(kind, o, d, c, t, prim, T_MIN)
+        _launch(kind, o, d, c, t, prim, T_MIN, lib)
     return t, prim
 
 
@@ -451,10 +488,42 @@ def traverse_anyhit_packed(o, d, bvh, t_far, variant: str = "skip"):
     ordered = _is_ordered(variant, True)
     if not o.is_cuda:
         return _anyhit_plain(o, d, bvh, t_far, T_MIN, ordered, False)
+    return _anyhit_kernel("ordered_anyhit" if ordered else "skip_anyhit", o, d, bvh, t_far)
+
+
+def _anyhit_kernel(kind: str, o, d, bvh, t_far, lib=None):
     blocked = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
     o, d = o.contiguous(), d.contiguous()
     tf = t_far.to(torch.float32).contiguous()
-    kind = "ordered_anyhit" if ordered else "skip_anyhit"
     for c in _as_list(bvh):
-        _launch(kind, o, d, c, tf, blocked, T_MIN)
+        _launch(kind, o, d, c, tf, blocked, T_MIN, lib)
     return blocked
+
+
+def skip_walk_counts(o, d, bvh, t_far=None, any_hit: bool = False):
+    """The skip-link walk through binary_walk.cu's counting build, on CUDA
+    tensors: (output, visits, tests, turns, lanes). The output is
+    traverse_closest_packed's (t, prim) or traverse_anyhit_packed's blocked
+    flags; visits and tests (N,) int64 are each ray's node visits and
+    triangle tests, summed over the chunks, as skip_walk_plain(...,
+    counts=True) counts them; turns and lanes (ceil(N / 32),) int64 are
+    each warp's turns (a node step or a leaf batch that its lanes run
+    together) and the lanes taking part in them, so lanes.sum() / (32 *
+    turns.sum()) is the walk's SIMT efficiency."""
+    lib = _lib(COUNTS_DEFINES)
+    n, dev = o.shape[0], o.device
+    visits = torch.zeros(n, dtype=torch.int64, device=dev)
+    tests = torch.zeros_like(visits)
+    turns = torch.zeros(-(-n // 32), dtype=torch.int64, device=dev)
+    lanes = torch.zeros_like(turns)
+    err = lib.skip_walk_set_counters(visits.data_ptr(), tests.data_ptr(), turns.data_ptr(),
+                                     lanes.data_ptr())
+    if err != 0:
+        raise RuntimeError(f"skip_walk_set_counters failed: cudaError {err}")
+    try:
+        out = (_anyhit_kernel("skip_anyhit", o, d, bvh, t_far, lib) if any_hit
+               else _closest_kernel("skip_closest", o, d, bvh, t_far, lib))
+        torch.cuda.synchronize(dev)
+    finally:
+        lib.skip_walk_set_counters(None, None, None, None)
+    return out, visits, tests, turns, lanes
