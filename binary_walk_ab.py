@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time builds of the binary skip-link walk against each other on one CUDA
-card.
+"""Time builds of the binary walks (skip-link and ordered) against each
+other on one CUDA card.
 
     python3 binary_walk_ab.py [--other NAME=DIR ...] [--counts] [--rounds R]
 
@@ -15,22 +15,26 @@ variant NAME, timed first. Then, on these recorded inputs:
   - bounce1..3: the same with integrator 'path', max_depth 4: sample 0's
     closest-hit and any-hit calls of bounces 1-3;
   - sponza: Sponza 1M in 9 packed chunks, leaf 16: chip_smoke.py's 131,072
-    primary and random rays and their shadow rays, a third at t_far 0,
+    primary and random rays and their shadow rays, a third at t_far 0;
+  - shard: chip_smoke.py's [shard] inputs, the 1024x1024 frame's 1,048,576
+    primary rays over build_sharded_chunks(tris, 1)'s 9 padded chunks, and
+    their shadow rays,
 
-each variant's closest and any hit (chip_smoke.py's `skip_closest` and
-`skip_anyhit`) is held bit for bit to skip_walk_plain; ptxas's registers
-and spills of the skip_walk kernels, and, where the build reports them,
-the runtime's registers, local memory and resident warps an SM, are
-printed; with --counts, the counting build (-DSKIP_WALK_COUNTS,
-traverse_packed.skip_walk_counts) is held to the plain walk's node visits
-and triangle tests ray for ray, and each input's SIMT efficiency (lane
-steps over warp turns x 32) is printed for the counting build (a turn is a
-node step or a leaf batch that lanes run together) and, modelled from the
-plain walk's steps, for the parent's nested loop (a turn is a node step or
-one triangle test, the warp reconverging after each leaf); then R rounds,
-in each every variant's calls (5 each, by CUDA events), in forward order
-in even rounds and in reverse order in odd ones: the mean, min and max
-over the rounds and each mean against the first variant's.
+each variant's four entry points (KINDS: the skip-link and the ordered
+walk, closest and any hit) are held bit for bit to skip_walk_plain and
+ordered_walk_plain; ptxas's registers, spills and stack frame of the four
+kernels, and, where the build reports them, the runtime's registers, local
+memory and resident warps an SM, are printed; with --counts, the counting
+build (-DBINARY_WALK_COUNTS, traverse_packed.walk_counts) is held to the
+plain walk's node visits (pops) and triangle tests ray for ray, and each
+call's SIMT efficiency (lane steps over warp turns x 32) is printed for
+the counting build (a turn is a node step or a leaf batch that lanes run
+together) and, modelled from the plain walk's steps, for a nested leaf
+loop as the first port of each walk ran (a turn is a node step or one
+triangle test, the warp reconverging after each leaf); then R rounds, in
+each every variant's calls (5 each, by CUDA events), in forward order in
+even rounds and in reverse order in odd ones: the mean, min and max over
+the rounds and each mean against the first variant's.
 
 Prints one JSON line, {"ab": [...], ...}, last. Exits non-zero without a
 card, when a build fails, and when a variant or the counting build differs
@@ -57,13 +61,14 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from blink_torch.api import build_scene, render  # noqa: E402
 from blink_torch.config import get_config  # noqa: E402
+from blink_torch.dist.scene_shard import build_sharded_chunks  # noqa: E402
 from blink_torch.kernels import _build  # noqa: E402
 from blink_torch.kernels import api as kapi  # noqa: E402
 from blink_torch.kernels import traverse_packed as tp  # noqa: E402
 from wide_walk_ab import BUILD  # noqa: E402
 
 SOURCE = _build.CSRC / "binary_walk.cu"
-KINDS = ("skip_closest", "skip_anyhit")
+KINDS = ("skip_closest", "skip_anyhit", "ordered_closest", "ordered_anyhit")
 log = cs.log
 
 
@@ -80,45 +85,50 @@ def ptxas_registers(text: str) -> dict[str, int]:
     return regs
 
 
-def skip_facts(text: str) -> dict:
-    """{closest|anyhit: {registers, spill_bytes}} of the skip_walk kernels
-    in ptxas's report `text` (mangled skip_walkILb0E / skip_walkILb1E)."""
+def walk_facts(text: str) -> dict:
+    """{kind: {registers, spill_bytes, stack_bytes}} of the four kernels in
+    ptxas's report `text` (mangled 9skip_walkILb0E ... 12ordered_walkILb1E;
+    the stack frame is the local memory a thread, the ordered walk's stack
+    and any spills)."""
     regs, spills = ptxas_registers(text), _build.ptxas_spills(text)
+    frames = dict(re.findall(r"Function properties for (\w+)\n\s*(\d+) bytes stack frame",
+                             text))
     out = {}
     for k, v in spills.items():
-        if m := re.search(r"9skip_walkILb([01])E", k):
-            out[("closest", "anyhit")[int(m.group(1))]] = {"registers": regs.get(k),
-                                                           "spill_bytes": v}
+        if m := re.search(r"\d+(skip|ordered)_walkILb([01])E", k):
+            kind = f"{m.group(1)}_{('closest', 'anyhit')[int(m.group(2))]}"
+            out[kind] = {"registers": regs.get(k), "spill_bytes": v,
+                         "stack_bytes": int(frames.get(k, 0))}
     return out
 
 
 def build(name: str, src: Path):
-    """(name, typed library, its skip_walk kernels' ptxas facts)."""
+    """(name, typed library, its kernels' ptxas facts)."""
     BUILD.mkdir(parents=True, exist_ok=True)
     out = BUILD / f"binary_walk-{name}.so"
     cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out), str(src)]
     proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{' '.join(cmd)}\n{proc.stdout}")
-    return name, tp.typed(ctypes.CDLL(str(out))), skip_facts(proc.stdout)
+    return name, tp.typed(ctypes.CDLL(str(out))), walk_facts(proc.stdout)
 
 
 def call(kind: str, rays, chunks, lib):
-    """One skip-link wrapper call of `lib` on rays (o, d, t_far)."""
+    """One call of entry point `kind` of `lib` on rays (o, d, t_far)."""
     o, d, tf = rays
-    if kind == "skip_closest":
+    if kind.endswith("closest"):
         return tp._closest_kernel(kind, o, d, chunks, tf, lib)
     return tp._anyhit_kernel(kind, o, d, chunks, tf, lib)
 
 
-def nested_model(o, d, chunks, t_far, any_hit: bool):
-    """(warp turns, lane steps) of the parent's kernel, modelled from the
-    plain walk's steps: in each step of the walk, every warp with a live
-    lane makes one node-step turn and then as many leaf turns (one test
-    each) as its busiest lane makes tests; a lane step is a node visit or a
-    triangle test."""
+def nested_model(o, d, chunks, t_far, any_hit: bool, ordered: bool):
+    """(warp turns, lane steps) of a walk whose warps run each leaf as a
+    nested loop (the first port of each walk), modelled from the plain
+    walk's steps: in each step, every warp with a live lane makes one
+    node-step turn and then as many leaf turns (one test each) as its
+    busiest lane makes tests; a lane step is a node visit or a triangle
+    test."""
     n, dev = o.shape[0], o.device
-    ix = 1.0 / d
     warps = -(-n // 32)
     turns = torch.zeros(warps, dtype=torch.int64, device=dev)
     lanes = torch.zeros_like(turns)
@@ -127,37 +137,30 @@ def nested_model(o, d, chunks, t_far, any_hit: bool):
         bound = torch.minimum(t_far, bound)
     blocked = torch.zeros(n, dtype=torch.bool, device=dev)
     for c in chunks:
-        meta = c.node.long()
-        cur = torch.zeros(n, dtype=torch.int64, device=dev)
-        act = torch.nonzero(~blocked).squeeze(1)
-        while act.numel():
-            nd = cur[act]
-            bx, m = c.box[nd], meta[nd]
-            need = tp._slab(o[act], ix[act], tp.T_MIN, bound[act], bx[:, 0:3], bx[:, 4:7])
-            cnt = m[:, tp.COUNT]
-            read = torch.zeros_like(nd)
-            li = torch.nonzero(need & (cnt > 0)).squeeze(1)
-            done = torch.zeros_like(need)
-            if li.numel():
-                r = act[li]
-                hit, tmin, _, first = tp._leaf_plain(o[r], d[r], c, m[li, tp.FIRST], cnt[li],
-                                                     bound[r], tp.T_MIN)
-                read[li] = torch.where(hit, first + 1, cnt[li]) if any_hit else cnt[li]
-                if any_hit:
-                    blocked[r[hit]] = True
-                    done[li[hit]] = True
-                else:
-                    bound[r[hit]] = tmin[hit]
-            w = act // 32
+        rays = torch.nonzero(~blocked).squeeze(1)
+
+        def trace(act, read):
+            w = rays[act] // 32
             most = torch.zeros(warps, dtype=torch.int64, device=dev).scatter_reduce(
                 0, w, read, "amax")
             stepped = torch.zeros(warps, dtype=torch.bool, device=dev)
             stepped[w] = True
-            turns += stepped.long() * (1 + most)
+            turns.add_(stepped.long() * (1 + most))
             lanes.index_add_(0, w, 1 + read)
-            cur[act] = torch.where(need, nd + 1, m[:, tp.SKIP])
-            act = act[(cur[act] < c.n_nodes) & ~done]
+
+        bt = bound[rays].clone()
+        out = tp._walk_chunk(o[rays], d[rays], c, bt, any_hit, tp.T_MIN, ordered, trace=trace)
+        if any_hit:
+            blocked[rays] |= out
+        else:
+            bound[rays] = bt
     return int(turns.sum()), int(lanes.sum())
+
+
+def by_kind(closest, anyhit) -> dict:
+    """{kind: rays} of the four entry points: closest-hit rays (o, d,
+    t_far) for both walks' closest hit, any-hit rays for both any hits."""
+    return {k: closest if k.endswith("closest") else anyhit for k in KINDS}
 
 
 def record_inputs(dev, size: int | None = None, subdiv: int | None = None,
@@ -173,8 +176,7 @@ def record_inputs(dev, size: int | None = None, subdiv: int | None = None,
         render(scene, cfg, device=dev, backend=backend)
     o, d, _, _ = rec.calls["packed_closest"][0]
     so, sd, stf, _, _ = rec.calls["packed_anyhit"][0]
-    inputs["config2"] = (backend.chunks, {"skip_closest": (o, d, None),
-                                          "skip_anyhit": (so, sd, stf)})
+    inputs["config2"] = (backend.chunks, by_kind((o, d, None), (so, sd, stf)))
     with cs.Recorder() as rec:
         render(scene, cfg.override(integrator="path", max_depth=4), device=dev,
                backend=backend)
@@ -183,8 +185,7 @@ def record_inputs(dev, size: int | None = None, subdiv: int | None = None,
         so, sd, stf, _, _ = rec.calls["packed_anyhit"][b]
         # The bvh backend walks a bounce's dead lanes too, as blink's does:
         # its closest-hit call takes no t_far.
-        inputs[f"bounce{b}"] = (backend.chunks, {"skip_closest": (o, d, None),
-                                                 "skip_anyhit": (so, sd, stf)})
+        inputs[f"bounce{b}"] = (backend.chunks, by_kind((o, d, None), (so, sd, stf)))
     scfg = get_config("sponza").override(width=cs.WIDTH, height=cs.HEIGHT, spp=1,
                                          integrator="direct", sponza_tris=sponza_tris)
     sponza = build_scene(scfg).to(dev)
@@ -193,7 +194,11 @@ def record_inputs(dev, size: int | None = None, subdiv: int | None = None,
     t, prim = tp.skip_walk_plain(o, d, chunks)
     so, sd, tf = cs.short_shadow_rays(o, d, t, prim, sponza)
     tf[::3] = 0.0
-    inputs["sponza"] = (chunks, {"skip_closest": (o, d, None), "skip_anyhit": (so, sd, tf)})
+    inputs["sponza"] = (chunks, by_kind((o, d, None), (so, sd, tf)))
+    chunks = [c.to(dev) for c in build_sharded_chunks(sponza.triangles, 1)[0]]
+    o, d = cs.primary_rays(sponza, cs.WIDTH, dev)
+    t, prim = tp.traverse_closest_packed(o, d, chunks, variant="skip")
+    inputs["shard"] = (chunks, by_kind((o, d, None), cs.short_shadow_rays(o, d, t, prim, sponza)))
     return inputs
 
 
@@ -229,20 +234,22 @@ def main() -> int:
     for name, lib, facts in built:
         runtime = {}
         if hasattr(lib, "binary_walk_attributes"):
-            runtime = {k.split("_")[1]: tp.kernel_attributes(k, lib) for k in KINDS}
+            runtime = {k: tp.kernel_attributes(k, lib) for k in KINDS}
         report[name] = {"ptxas": facts, "runtime": runtime}
         log(f"[ab] {name}: ptxas {json.dumps(facts)}; runtime {json.dumps(runtime)}")
 
     t0 = time.perf_counter()
     inputs = record_inputs(dev)
     log(f"[ab] inputs recorded in {time.perf_counter() - t0:.1f} s: " + ", ".join(
-        f"{k} {v[1]['skip_closest'][0].shape[0]} rays" for k, v in inputs.items()))
+        f"{k} {v[1]['skip_closest'][0].shape[0]} rays over {len(v[0])} chunks"
+        for k, v in inputs.items()))
     good = [(name, lib) for name, lib, _ in built]
     for inp, (chunks, rays) in inputs.items():
         for kind, r in rays.items():
-            any_hit = kind == "skip_anyhit"
-            ref = tp.skip_walk_plain(r[0], r[1], chunks, t_far=r[2], any_hit=any_hit,
-                                     counts=True)
+            any_hit = kind.endswith("anyhit")
+            t0 = time.perf_counter()
+            walk = tp.ordered_walk_plain if kind.startswith("ordered") else tp.skip_walk_plain
+            ref = walk(r[0], r[1], chunks, t_far=r[2], any_hit=any_hit, counts=True)
             out_ref = ref[0] if any_hit else ref[:2]
             for name, lib in list(good):
                 out = call(kind, r, chunks, lib)
@@ -253,23 +260,24 @@ def main() -> int:
                     log(f"[ab] {name} DIFFERS from the plain walk on {inp} {kind}")
                     failed.append(f"{name} {inp} {kind}")
                     good.remove((name, lib))
+            log(f"[ab] {inp} {kind}: checked in {time.perf_counter() - t0:.1f} s")
             if not args.counts:
                 continue
-            out, visits, tests, turns, lanes = tp.skip_walk_counts(
-                r[0], r[1], chunks, t_far=r[2], any_hit=any_hit)
+            out, visits, tests, turns, lanes = tp.walk_counts(kind, r[0], r[1], chunks, r[2])
             same = torch.equal(visits, ref[-2]) and torch.equal(tests, ref[-1])
             n = r[0].shape[0]
-            m_turns, m_lanes = nested_model(r[0], r[1], chunks, r[2], any_hit)
+            m_turns, m_lanes = nested_model(r[0], r[1], chunks, r[2], any_hit,
+                                            kind.startswith("ordered"))
             c = {"same": same, "visits": visits.double().mean().item(),
                  "tests": tests.double().mean().item(), "turns": int(turns.sum()),
                  "simt": int(lanes.sum()) / (32 * int(turns.sum())),
-                 "parent_turns": m_turns, "parent_simt": m_lanes / (32 * m_turns)}
+                 "nested_turns": m_turns, "nested_simt": m_lanes / (32 * m_turns)}
             report.setdefault("counts", {})[f"{inp}_{kind}"] = c
             log(f"[ab] counts {inp} {kind}: {n} rays, visits and tests a ray "
                 f"{'equal' if same else 'DIFFER from'} the plain walk's ray for ray "
                 f"({c['visits']:.3f}, {c['tests']:.3f}); warp turns {c['turns']} "
-                f"(SIMT efficiency {c['simt']:.4f}); parent's nested loop, modelled: "
-                f"{m_turns} turns (SIMT efficiency {c['parent_simt']:.4f})")
+                f"(SIMT efficiency {c['simt']:.4f}); a nested leaf loop, modelled: "
+                f"{m_turns} turns (SIMT efficiency {c['nested_simt']:.4f})")
             if not same:
                 failed.append(f"counts {inp} {kind}")
 
@@ -287,10 +295,11 @@ def main() -> int:
             ts = times[(name, (inp, kind))]
             mean = sum(ts) / len(ts)
             base = base or mean
-            log(f"[ab] {inp:8s} {kind:12s} {name:12s} mean {mean:.4f} ms, min {min(ts):.4f}, "
+            log(f"[ab] {inp:8s} {kind:15s} {name:14s} mean {mean:.4f} ms, min {min(ts):.4f}, "
                 f"max {max(ts):.4f}; {mean / base:.3f} x {good[0][0]}")
             report[name][f"{inp}_{kind}_ms"] = mean
             report[name][f"{inp}_{kind}_min_ms"] = min(ts)
+            report[name][f"{inp}_{kind}_max_ms"] = max(ts)
     print(smi)
     print(json.dumps({"ab": [{"name": k, **v} for k, v in report.items() if k != "counts"],
                       "counts": report.get("counts")}))

@@ -7,7 +7,7 @@ against their plain torch versions.
 Phases (each asserts; any failure exits non-zero):
   1. build    — compile src/blink_torch/csrc/{wide_walk,sphere_pass,
                 binary_walk}.cu and binary_walk.cu's counting build
-                (-DSKIP_WALK_COUNTS) with nvcc, in parallel, and print
+                (-DBINARY_WALK_COUNTS) with nvcc, in parallel, and print
                 ptxas's register, shared-memory and spill summaries;
   2. sphere   — the sphere kernel against its plain version on the 65,536
                 primary rays of Cornell at 256x256 plus 65,536 random rays,
@@ -84,7 +84,10 @@ Phases (each asserts; any failure exits non-zero):
                 chunked closest hit against the wide backend, with the
                 count of exact t ties; node visits and triangle tests per
                 ray from the plain versions, for the bound; the ordered
-                walks' registers, spills and resident warps an SM;
+                walks' counting build against the plain walk's pops and
+                tests ray for ray, with its warp turns and SIMT
+                efficiency; their registers, spills and resident warps an
+                SM;
  13. config 2 — the bunny (81,924 triangles) at 512x512, 4 spp, stochastic
                 direct, through backend 'bvh' and render(): 4 skip-link
                 closest and 4 any-hit launches, the kernels against their
@@ -100,7 +103,10 @@ Phases (each asserts; any failure exits non-zero):
                 kernels bit for bit equal to their plain versions there,
                 the result equal to the replicated packed traversal and to
                 the wide backend (up to exact t ties), with the walks'
-                times and the ordered closest hit's bound at that size;
+                times; then both ordered kernels at that size (the any hit
+                on the shadow rays, off the path), bit for bit, the
+                counting build ray for ray, each one's time, bound and SIMT
+                efficiency (the ordered rows' shard_* keys);
  15. dist     — on config 2 through bvh, dist_render equals render bit for
                 bit and dist_render_grad matches render_grad; with the path
                 integrator at depth 4, dist_render equals render bit for
@@ -1254,17 +1260,21 @@ def check_binary(kind, o, d, chunks, t_far, label):
     return ref[-2], ref[-1], seen, out, err
 
 
-def check_skip_counts(o, d, chunks, t_far, any_hit, out, visits, tests, label, tag) -> None:
-    """The counting build of the skip-link walk on rays (o, d, t_far): its
-    output equal to the kernel's `out` and its node visits and triangle
-    tests equal to the plain walk's `visits` and `tests`, ray for ray; logs
-    its warp turns and SIMT efficiency."""
-    got, v, t, turns, lanes = tp.skip_walk_counts(o, d, chunks, t_far=t_far, any_hit=any_hit)
-    same_out = torch.equal(got, out) if any_hit else all(map(torch.equal, got, out))
-    assert same_out and torch.equal(v, visits) and torch.equal(t, tests), label
+def check_counts(kind, o, d, chunks, t_far, out, visits, tests, label, tag) -> float:
+    """The counting build of entry point `kind` (skip_closest, ...) on rays
+    (o, d, t_far): its output equal to the kernel's `out` and its node
+    visits (the ordered walk's pops) and triangle tests equal to the plain
+    walk's `visits` and `tests`, ray for ray; logs its warp turns and
+    returns its SIMT efficiency."""
+    got, v, t, turns, lanes = tp.walk_counts(kind, o, d, chunks, t_far)
+    same_out = (torch.equal(got, out) if kind.endswith("anyhit")
+                else all(map(torch.equal, got, out)))
+    assert same_out and torch.equal(v, visits) and torch.equal(t, tests), (kind, label)
     nt, nl = int(turns.sum()), int(lanes.sum())
+    simt = nl / max(32 * nt, 1)
     log(f"[{tag}] {label}: the counting build's visits and tests equal the plain walk's on "
-        f"all {o.shape[0]} rays; {nt} warp turns, SIMT efficiency {nl / max(32 * nt, 1):.4f}")
+        f"all {o.shape[0]} rays; {nt} warp turns, SIMT efficiency {simt:.4f}")
+    return simt
 
 
 def compare_with_wide(t, prim, t_w, prim_w, label) -> int:
@@ -1338,6 +1348,9 @@ def phase_binary(scene, backend, dev, chunk_tris: int = tw.CHUNK_TRIS):
             assert torch.equal(out, b_w), int((out != b_w).sum())
         if not kind.startswith("ordered"):
             continue
+        simt = check_counts(kind, *rays[:2], chunks, rays[2], out, pops, tests,
+                            f"{kind} {'primary+random' if rays[2] is None else 'shadow'}",
+                            "binary")
         call = ((lambda: tp.traverse_closest_packed(o, d, chunks)) if kind == "ordered_closest"
                 else (lambda: tp.traverse_anyhit_packed(so, sd, chunks, tf, variant="ordered")))
         ms = events_ms(call, 5)
@@ -1352,7 +1365,7 @@ def phase_binary(scene, backend, dev, chunk_tris: int = tw.CHUNK_TRIS):
             "name": kind, "route": "cuda", "source": BINARY_SOURCE,
             "replaces": BINARY_REPLACES[kind], "launches": counts[kind], "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": None, **binary_kernel_facts(kind),
+            "library_ms": None, **binary_kernel_facts(kind), "simt": simt,
         })
     return rows
 
@@ -1391,8 +1404,8 @@ def phase_config2(dev, size: int | None = None, subdiv: int | None = None):
         assert variant == "skip" and torch.equal(out[0], t_p) and torch.equal(out[1], p_p)
         errs["skip_closest"] = max(errs["skip_closest"], max_abs_err(out, (t_p, p_p)))
         stats["skip_closest"].append((pops, tests, seen, int((p_p >= 0).sum())))
-        check_skip_counts(o, d, backend.chunks, None, False, out, pops, tests,
-                          f"skip_closest, primary rays of sample {k}", "config2")
+        check_counts("skip_closest", o, d, backend.chunks, None, out, pops, tests,
+                     f"skip_closest, primary rays of sample {k}", "config2")
     for k, (o, d, t_far, variant, out) in enumerate(rec.calls["packed_anyhit"]):
         seen = []
         b_p, pops, tests = tp.skip_walk_plain(o, d, backend.chunks, t_far=t_far,
@@ -1400,8 +1413,8 @@ def phase_config2(dev, size: int | None = None, subdiv: int | None = None):
         assert variant == "skip" and torch.equal(out, b_p)
         errs["skip_anyhit"] = max(errs["skip_anyhit"], max_abs_err(out, b_p))
         stats["skip_anyhit"].append((pops, tests, seen, 0))
-        check_skip_counts(o, d, backend.chunks, t_far, True, out, pops, tests,
-                          f"skip_anyhit, shadow rays of sample {k}", "config2")
+        check_counts("skip_anyhit", o, d, backend.chunks, t_far, out, pops, tests,
+                     f"skip_anyhit, shadow rays of sample {k}", "config2")
     log(f"[config2] {len(rec.calls['packed_closest'])} closest and "
         f"{len(rec.calls['packed_anyhit'])} any-hit calls identical to the plain versions")
 
@@ -1458,11 +1471,14 @@ def phase_config2(dev, size: int | None = None, subdiv: int | None = None):
     return rows, (scene, cfg, backend)
 
 
-def phase_shard(scene, backend, dev, size: int = WIDTH) -> dict:
+def phase_shard(scene, backend, dev, size: int = WIDTH):
     """Scene sharding at world size 1 over a one-rank NCCL group (opened by
     main): the 1024x1024 frame's primary rays and their shadow rays, each
-    kernel held bit for bit to its plain version on the padded chunks.
-    Returns the two kernels' max |error| there."""
+    kernel held bit for bit to its plain version on the padded chunks; and
+    both ordered kernels there (the any hit on the shadow rays, beside the
+    path), with the counting build ray for ray, their times, bounds and
+    SIMT efficiency. Returns ({kernel: max |error|}, {ordered kind:
+    {"launches", "ms", "bound_ms", "simt"}})."""
     from blink_torch.dist.scene_shard import (
         build_sharded_chunks,
         intersect_chunks_sharded,
@@ -1515,11 +1531,29 @@ def phase_shard(scene, backend, dev, size: int = WIDTH) -> dict:
         "wide_anyhit": events_ms(lambda: tw.traverse_anyhit_wide(so, sd, backend.chunks, tf), 3),
     }
     log(f"[shard] ms at {o.shape[0]} rays over {n} chunks: " + json.dumps(ms))
-    bound, _ = binary_bound("ordered_closest", seen, pops, tests, o.shape[0], False,
-                            int((prim >= 0).sum()))
-    log(f"[shard] ordered_closest at {o.shape[0]} rays: {ms['ordered_closest']:.4f} ms, "
-        f"{bound / ms['ordered_closest']:.4f} of the bound")
-    return errs
+    # Both ordered kernels at this size: the closest hit on the path's rays
+    # (held above), the any hit on its shadow rays.
+    b_o = tp.traverse_anyhit_packed(so, sd, chunks, tf, variant="ordered")
+    seen_a = []
+    b_op, pops_a, tests_a = tp.ordered_walk_plain(so, sd, chunks, t_far=tf, any_hit=True,
+                                                  counts=True, seen=seen_a)
+    assert torch.equal(b_o, b_op), int((b_o != b_op).sum())
+    errs["ordered_anyhit"] = max_abs_err(b_o, b_op)
+    ms["ordered_anyhit"] = events_ms(
+        lambda: tp.traverse_anyhit_packed(so, sd, chunks, tf, variant="ordered"), 3)
+    stats = {}
+    for kind, rays, out, walked in (
+            ("ordered_closest", (o, d, None), (t, prim), (seen, pops, tests)),
+            ("ordered_anyhit", (so, sd, tf), b_o, (seen_a, pops_a, tests_a))):
+        simt = check_counts(kind, *rays[:2], chunks, rays[2], out, *walked[1:],
+                            f"{kind} at {o.shape[0]} rays", "shard")
+        hits = int((prim >= 0).sum()) if kind == "ordered_closest" else 0
+        bound, _ = binary_bound(kind, *walked, o.shape[0], rays[2] is not None, hits)
+        log(f"[shard] {kind} at {o.shape[0]} rays: {ms[kind]:.4f} ms, "
+            f"{bound / ms[kind]:.4f} of the bound, SIMT efficiency {simt:.4f}")
+        stats[kind] = {"launches": counts[kind], "ms": ms[kind], "bound_ms": bound,
+                       "simt": simt}
+    return errs, stats
 
 
 def path_walks(rec, chunks, depth: int) -> dict:
@@ -1549,8 +1583,8 @@ def path_walks(rec, chunks, depth: int) -> dict:
             err = max_abs_err(res, ref[0] if any_hit else ref[:2])
             assert same, (kind, sample, bounce, err)
             if sample == 0:
-                check_skip_counts(o, d, chunks, tf, any_hit, res, pops, tests,
-                                  f"{kind}, bounce {bounce}", "dist")
+                check_counts(kind, o, d, chunks, tf, res, pops, tests,
+                             f"{kind}, bounce {bounce}", "dist")
             live = torch.ones_like(pops, dtype=torch.bool) if tf is None else tf > 0
             n, n_live = o.shape[0], int(live.sum())
             hits = 0 if any_hit else int((ref[1] >= 0).sum())
@@ -1669,13 +1703,15 @@ def main() -> int:
     torch.cuda.set_device(dev)
     mesh.init_single_rank("nccl")
     try:
-        shard_errs = phase_shard(scene, backend, dev)
+        shard_errs, shard = phase_shard(scene, backend, dev)
         path = phase_dist(*config2, dev)
     finally:
         mesh.close()
 
     for row in rows:
         row["max_abs_err"] = max(row["max_abs_err"], shard_errs.get(row["name"], 0.0))
+        if row["name"] in shard:
+            row.update({f"shard_{k}": v for k, v in shard[row["name"]].items()})
         if row["name"] in path:
             p = path[row["name"]]
             row["max_abs_err"] = max(row["max_abs_err"], p["err"])

@@ -44,9 +44,10 @@
 // call reads them at a few percent of the card's rate. A walk waits on
 // chains of dependent loads (a node's record, then its slab test, then the
 // next node's address) and on lanes that diverge: a ray's walk is a chain
-// of some 80 node visits and 80 triangle tests on config 2. ordered_walk
-// is the first port, unchanged: a divergent per-ray loop with a nested
-// leaf loop. skip_walk is redesigned against both (below).
+// of some 80 node visits and 80 triangle tests on config 2. Both walks are
+// designed against that (below): the leaf is lane state in one loop, so a
+// lane at a leaf no longer holds its warp's other lanes in a leaf loop of
+// its own, and a leaf's records are loaded a batch at a time.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -81,53 +82,9 @@ __device__ __forceinline__ bool slab(float ox, float oy, float oz, float ix,
   return nan_max(near, t_min) <= nan_min(far, t_max);
 }
 
-// Möller–Trumbore as kernels/triangle.py::triangle_tuv; kTMax on a miss.
-__device__ __forceinline__ float tri_t(float ox, float oy, float oz, float dx,
-                                       float dy, float dz, const float4* rec,
-                                       float t_min, float t_max) {
-  const float4 a = __ldg(rec), b = __ldg(rec + 1), c = __ldg(rec + 2);
-  const float v0x = a.x, v0y = a.y, v0z = a.z;
-  const float e1x = a.w, e1y = b.x, e1z = b.y;
-  const float e2x = b.z, e2y = b.w, e2z = c.x;
-  const float px = dy * e2z - dz * e2y;
-  const float py = dz * e2x - dx * e2z;
-  const float pz = dx * e2y - dy * e2x;
-  const float det = e1x * px + e1y * py + e1z * pz;
-  const bool degen = det == 0.0f;
-  const float inv = 1.0f / (degen ? 1.0f : det);
-  const float tx = ox - v0x, ty = oy - v0y, tz = oz - v0z;
-  const float u = (tx * px + ty * py + tz * pz) * inv;
-  const float qx = ty * e1z - tz * e1y;
-  const float qy = tz * e1x - tx * e1z;
-  const float qz = tx * e1y - ty * e1x;
-  const float v = (dx * qx + dy * qy + dz * qz) * inv;
-  const float t = (e2x * qx + e2y * qy + e2z * qz) * inv;
-  const bool valid = !degen && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
-                     t >= t_min && t <= t_max;
-  return valid ? t : kTMax;
-}
-
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz;
 };
-
-// Tests the cnt slots from first of a leaf in slot order. Returns true when
-// an any-hit ray is blocked (and stops); a closest-hit ray updates best.
-template <bool ANY_HIT>
-__device__ __forceinline__ bool leaf(const Ray& r, const float4* tri,
-                                     int first, int cnt, float t_min,
-                                     float& best, int& best_slot) {
-  for (int s = first; s < first + cnt; ++s) {
-    const float t = tri_t(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, tri + 3 * s,
-                          t_min, best);
-    if (t < best) {
-      if (ANY_HIT) return true;
-      best = t;
-      best_slot = s;
-    }
-  }
-  return false;
-}
 
 __device__ __forceinline__ Ray load_ray(const float* o, const float* d, int i) {
   Ray r;
@@ -154,37 +111,39 @@ __device__ __forceinline__ Ray load_ray(const float* o, const float* d, int i) {
 // cost more warps an SM than the loads in flight gave back. Issuing node
 // cur + 1's loads with node cur's slab test, and stepping a warp's lanes
 // in order of their position, were slower and are not done.
-// A build with -DSKIP_WALK_COUNTS (kernels/traverse_packed.py::
-// skip_walk_counts) counts each ray's node visits and triangle tests, and
-// each warp's turns of each kind (node step, leaf batch) and the lanes that
-// take part in them (__activemask, as the warp runs them).
 constexpr int kBatch = 2;
 
-#ifdef SKIP_WALK_COUNTS
+// A build with -DBINARY_WALK_COUNTS (kernels/traverse_packed.py::
+// walk_counts) counts each ray's node visits
+// (the ordered walk's pops) and triangle tests, and each warp's turns of
+// each kind (node step, leaf batch) and the lanes that take part in them
+// (__activemask, as the warp runs them).
+#ifdef BINARY_WALK_COUNTS
 // Per-ray (visits, tests) and per-warp (turns, lanes) counters, each (n,)
 // or (ceil(n / 32),) int64, or null when not counting.
-__device__ long long* g_skip_visits = nullptr;
-__device__ long long* g_skip_tests = nullptr;
-__device__ long long* g_skip_turns = nullptr;
-__device__ long long* g_skip_lanes = nullptr;
-#define SKIP_COUNT(counter, i, v) \
+__device__ long long* g_walk_visits = nullptr;
+__device__ long long* g_walk_tests = nullptr;
+__device__ long long* g_walk_turns = nullptr;
+__device__ long long* g_walk_lanes = nullptr;
+#define WALK_COUNT(counter, i, v) \
   if (counter) counter[i] += (v)
 // One warp turn of the branch that the calling lanes run together.
-#define SKIP_COUNT_TURN(i)                                      \
+#define WALK_COUNT_TURN(i)                                      \
   {                                                             \
     const unsigned m = __activemask();                          \
     if ((threadIdx.x & 31) == __ffs(static_cast<int>(m)) - 1) { \
-      SKIP_COUNT(g_skip_turns, (i) >> 5, 1);                    \
-      SKIP_COUNT(g_skip_lanes, (i) >> 5, __popc(m));            \
+      WALK_COUNT(g_walk_turns, (i) >> 5, 1);                    \
+      WALK_COUNT(g_walk_lanes, (i) >> 5, __popc(m));            \
     }                                                           \
   }
 #else
-#define SKIP_COUNT(counter, i, v)
-#define SKIP_COUNT_TURN(i)
+#define WALK_COUNT(counter, i, v)
+#define WALK_COUNT_TURN(i)
 #endif
 
-// tri_t on a record already in registers: a = (v0, e1.x), b = (e1.yz,
-// e2.xy), c = e2.z; the same arithmetic in the same order.
+// Möller–Trumbore as kernels/triangle.py::triangle_tuv on a record already
+// in registers: a = (v0, e1.x), b = (e1.yz, e2.xy), c = e2.z; kTMax on a
+// miss.
 __device__ __forceinline__ float tri_t_rec(const Ray& r, float4 a, float4 b,
                                            float c, float t_min,
                                            float t_max) {
@@ -232,7 +191,7 @@ __device__ __forceinline__ void leaf_batch(const Ray& r,
 #pragma unroll
   for (int j = 0; j < kBatch; ++j) {
     if (s + j < e && !hit) {
-      SKIP_COUNT(g_skip_tests, i, 1);
+      WALK_COUNT(g_walk_tests, i, 1);
       const float t = tri_t_rec(r, ra[j], rb[j], rc[j], t_min, best);
       if (t < best) {
         if (ANY_HIT) {
@@ -274,12 +233,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   bool hit = false;  // any hit: blocked in this chunk
   while (s < e || cur < n_nodes) {
     if (s < e) {
-      SKIP_COUNT_TURN(i);
+      WALK_COUNT_TURN(i);
       leaf_batch<ANY_HIT>(r, tri, i, t_min, s, e, best, best_slot, hit);
       if (hit) break;
     } else {
-      SKIP_COUNT_TURN(i);
-      SKIP_COUNT(g_skip_visits, i, 1);
+      WALK_COUNT_TURN(i);
+      WALK_COUNT(g_walk_visits, i, 1);
       const int4 m = __ldg(node + 2 * cur);
       const bool need = slab(r.ox, r.oy, r.oz, r.ix, r.iy, r.iz, t_min, best,
                              __ldg(box + 2 * cur), __ldg(box + 2 * cur + 1));
@@ -297,8 +256,25 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// ordered_walk: the ordered walk, redesigned for Hopper as skip_walk was.
+// Each ray makes the plain walk's pops and triangle tests in the plain
+// walk's order (kernels/traverse_packed.py::ordered_walk_plain). A lane's
+// state is its stack and the leaf slots [s, e) still to test, and the walk
+// is one loop: each turn is, lane by lane, one pop (a node step) or one
+// leaf batch (leaf_batch, as skip_walk's). A node step loads both int4s of
+// the node's 32-byte row together with its two box float4s, so the
+// near/far choice waits on no second load; a needed internal node is
+// replaced on the stack by its far child with the near child on top. The
+// pops are the plain walk's: the near child is the left one iff
+// (d[axis] >= 0) XOR !lower_first (-0.0 counts as positive), a leaf's slots
+// are tested in order against the running best t with a strict < merge,
+// and an any hit stops at its first hit. kBatch = 2 and the floor of one
+// block an SM in __launch_bounds__ are skip_walk's, each measured again
+// here; keeping the near child in a register (pushing the far child only)
+// measured no faster and is not done (PERF.md §6).
 template <bool ANY_HIT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     ordered_walk(const float* __restrict__ o, const float* __restrict__ d,
                  float* __restrict__ t_io, int* __restrict__ prim,
                  bool* __restrict__ blocked, const float4* __restrict__ box,
@@ -307,34 +283,38 @@ __global__ void __launch_bounds__(kThreads)
                  const int* __restrict__ tri_id, int n, int n_nodes,
                  float t_min) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  if (ANY_HIT && blocked[i]) return;
+  if (i >= n || (ANY_HIT && blocked[i])) return;
   const Ray r = load_ray(o, d, i);
   float best = ANY_HIT ? nan_min(t_io[i], kTMax) : t_io[i];
-  int best_slot = -1;
+  int best_slot = -1, sp = 0, s = 0, e = 0;
   int stack[STACK_CAP];
-  int sp = 0;
   stack[sp++] = 0;
-  while (sp > 0) {
-    const int cur = stack[--sp];
-    const int4 m = __ldg(node + 2 * cur);
-    const bool need = slab(r.ox, r.oy, r.oz, r.ix, r.iy, r.iz, t_min, best,
-                           __ldg(box + 2 * cur), __ldg(box + 2 * cur + 1));
-    if (!need) continue;
-    if (m.z > 0) {
-      if (leaf<ANY_HIT>(r, tri, m.y, m.z, t_min, best, best_slot)) {
-        blocked[i] = true;
-        return;
+  bool hit = false;  // any hit: blocked in this chunk
+  while (s < e || sp > 0) {
+    if (s < e) {
+      WALK_COUNT_TURN(i);
+      leaf_batch<ANY_HIT>(r, tri, i, t_min, s, e, best, best_slot, hit);
+      if (hit) break;
+    } else {
+      WALK_COUNT_TURN(i);
+      WALK_COUNT(g_walk_visits, i, 1);
+      const int cur = stack[--sp];
+      const int4 m = __ldg(node + 2 * cur), m1 = __ldg(node + 2 * cur + 1);
+      const bool need = slab(r.ox, r.oy, r.oz, r.ix, r.iy, r.iz, t_min, best,
+                             __ldg(box + 2 * cur), __ldg(box + 2 * cur + 1));
+      if (need && m.z > 0) {
+        s = m.y;
+        e = s + m.z;
+      } else if (need && m.w > 0) {
+        const float da = m1.x == 0 ? r.dx : (m1.x == 1 ? r.dy : r.dz);
+        const bool near_is_left = !(da >= 0.0f) != (m1.y != 0);  // -0 >= 0
+        const int left = cur + 1, right = m.w;
+        stack[sp++] = near_is_left ? right : left;  // far, popped last
+        stack[sp++] = near_is_left ? left : right;  // near, popped next
       }
-    } else if (m.w > 0) {
-      const int4 m1 = __ldg(node + 2 * cur + 1);
-      const float da = m1.x == 0 ? r.dx : (m1.x == 1 ? r.dy : r.dz);
-      const bool near_is_left = !(da >= 0.0f) != (m1.y != 0);  // -0 >= 0
-      const int left = cur + 1, right = m.w;
-      stack[sp++] = near_is_left ? right : left;  // far, popped last
-      stack[sp++] = near_is_left ? left : right;  // near, popped next
     }
   }
+  if (ANY_HIT && hit) blocked[i] = true;
   if (!ANY_HIT && best_slot >= 0) {
     t_io[i] = best;
     prim[i] = __ldg(tri_id + best_slot);
@@ -425,22 +405,22 @@ extern "C" int binary_walk_attributes(int ordered, int any_hit, int* out) {
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], f, out[3], 0));
 }
 
-#ifdef SKIP_WALK_COUNTS
-// Sets the counting build's counters: per ray (n,) int64 node visits and
-// triangle tests, per warp (ceil(n / 32),) int64 loop turns and lanes that
-// stepped, summed over launches; null pointers stop counting. Returns a
-// cudaError_t.
-extern "C" int skip_walk_set_counters(long long* visits, long long* tests,
-                                      long long* turns, long long* lanes) {
-  cudaError_t err = cudaMemcpyToSymbol(g_skip_visits, &visits, sizeof(visits));
+#ifdef BINARY_WALK_COUNTS
+// Sets the counting build's counters, for both walks: per ray (n,) int64
+// node visits (pops) and triangle tests, per warp (ceil(n / 32),) int64
+// loop turns and lanes that stepped, summed over launches; null pointers
+// stop counting. Returns a cudaError_t.
+extern "C" int binary_walk_set_counters(long long* visits, long long* tests,
+                                        long long* turns, long long* lanes) {
+  cudaError_t err = cudaMemcpyToSymbol(g_walk_visits, &visits, sizeof(visits));
   if (err == cudaSuccess) {
-    err = cudaMemcpyToSymbol(g_skip_tests, &tests, sizeof(tests));
+    err = cudaMemcpyToSymbol(g_walk_tests, &tests, sizeof(tests));
   }
   if (err == cudaSuccess) {
-    err = cudaMemcpyToSymbol(g_skip_turns, &turns, sizeof(turns));
+    err = cudaMemcpyToSymbol(g_walk_turns, &turns, sizeof(turns));
   }
   if (err == cudaSuccess) {
-    err = cudaMemcpyToSymbol(g_skip_lanes, &lanes, sizeof(lanes));
+    err = cudaMemcpyToSymbol(g_walk_lanes, &lanes, sizeof(lanes));
   }
   return static_cast<int>(err);
 }

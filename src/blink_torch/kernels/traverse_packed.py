@@ -211,14 +211,16 @@ def _leaf_plain(o, d, pk: PackedBVH, fst, cnt, bt, t_min: float):
 
 
 def _walk_chunk(o, d, pk: PackedBVH, bt, any_hit: bool, t_min: float, ordered: bool,
-                pops=None, tests=None, seen=None):
+                pops=None, tests=None, seen=None, trace=None):
     """Walk one chunk for a batch of rays (B,) whose best t (or, for any
     hit, bound) is `bt`, one node per ray and step. Closest hit: updates bt
     in place and returns the winning slot per ray (-1: no better hit in this
     chunk). Any hit: returns the blocked flags. `pops`/`tests` (B,) int64,
     when given, count node visits and triangle tests as the kernel does
     them; `seen`, a pair of bool masks (N,) and (P,), marks the nodes and
-    triangle slots read."""
+    triangle slots read; `trace(act, read)`, when given, is called after
+    each step with the rays that stepped (indices into the batch) and the
+    triangle tests each made in that step."""
     B = o.shape[0]
     dev = o.device
     n = pk.n_nodes
@@ -247,23 +249,26 @@ def _walk_chunk(o, d, pk: PackedBVH, bt, any_hit: bool, t_min: float, ordered: b
         cnt = m[:, COUNT]
         done = torch.zeros(act.numel(), dtype=torch.bool, device=dev)
         li = torch.nonzero(need & (cnt > 0)).squeeze(1)
+        read = torch.zeros(act.numel(), dtype=torch.int64, device=dev)
         if li.numel():
             r = act[li]
             hit, tmin, wslot, first = _leaf_plain(o[r], d[r], pk, m[li, FIRST], cnt[li],
                                                   bt[r], t_min)
-            read = torch.where(hit, first + 1, cnt[li]) if any_hit else cnt[li]
+            read[li] = torch.where(hit, first + 1, cnt[li]) if any_hit else cnt[li]
             if tests is not None:
-                tests[r] += read
+                tests[r] += read[li]
             if seen is not None:
                 j = torch.arange(pk.leaf_size, device=dev)
                 slots = m[li, FIRST][:, None] + j
-                seen[1][slots[j < read[:, None]]] = True
+                seen[1][slots[j < read[li, None]]] = True
             if any_hit:
                 blocked[r[hit]] = True
                 done[li[hit]] = True
             else:
                 bt[r[hit]] = tmin[hit]
                 slot_best[r[hit]] = wslot[hit]
+        if trace is not None:
+            trace(act, read)
         if ordered:
             right = m[:, RCHILD]
             near_is_left = ~dpos[act, m[:, AXIS]] ^ (m[:, LOWER_FIRST] > 0)
@@ -370,8 +375,8 @@ def ordered_walk_plain(o, d, chunks, t_far=None, any_hit: bool = False,
 # --------------------------------------------------------------------------
 
 
-#: The -D flag of binary_walk.cu's counting build (skip_walk_counts).
-COUNTS_DEFINES = ("SKIP_WALK_COUNTS",)
+#: The -D flag of binary_walk.cu's counting build (walk_counts).
+COUNTS_DEFINES = ("BINARY_WALK_COUNTS",)
 
 
 def typed(lib):
@@ -384,7 +389,7 @@ def typed(lib):
             fn.argtypes = [ptr] * 8 + [i32, i32, f32, ptr]
             fn.restype = i32
         for k, args in (("binary_walk_attributes", [i32, i32, ptr]),
-                        ("skip_walk_set_counters", [ptr] * 4)):
+                        ("binary_walk_set_counters", [ptr] * 4)):
             if hasattr(lib, k):
                 getattr(lib, k).argtypes = args
                 getattr(lib, k).restype = i32
@@ -500,30 +505,37 @@ def _anyhit_kernel(kind: str, o, d, bvh, t_far, lib=None):
     return blocked
 
 
-def skip_walk_counts(o, d, bvh, t_far=None, any_hit: bool = False):
-    """The skip-link walk through binary_walk.cu's counting build, on CUDA
+def walk_counts(kind: str, o, d, bvh, t_far=None):
+    """Entry point `kind` (skip_closest, skip_anyhit, ordered_closest,
+    ordered_anyhit) through binary_walk.cu's counting build, on CUDA
     tensors: (output, visits, tests, turns, lanes). The output is
     traverse_closest_packed's (t, prim) or traverse_anyhit_packed's blocked
-    flags; visits and tests (N,) int64 are each ray's node visits and
-    triangle tests, summed over the chunks, as skip_walk_plain(...,
-    counts=True) counts them; turns and lanes (ceil(N / 32),) int64 are
-    each warp's turns (a node step or a leaf batch that its lanes run
-    together) and the lanes taking part in them, so lanes.sum() / (32 *
-    turns.sum()) is the walk's SIMT efficiency."""
+    flags; visits and tests (N,) int64 are each ray's node visits (the
+    ordered walk's pops) and triangle tests, summed over the chunks, as
+    skip_walk_plain / ordered_walk_plain(..., counts=True) count them;
+    turns and lanes (ceil(N / 32),) int64 are each warp's turns (a node step
+    or a leaf batch that its lanes run together) and the lanes taking part
+    in them, so lanes.sum() / (32 * turns.sum()) is the walk's SIMT
+    efficiency."""
     lib = _lib(COUNTS_DEFINES)
     n, dev = o.shape[0], o.device
     visits = torch.zeros(n, dtype=torch.int64, device=dev)
     tests = torch.zeros_like(visits)
     turns = torch.zeros(-(-n // 32), dtype=torch.int64, device=dev)
     lanes = torch.zeros_like(turns)
-    err = lib.skip_walk_set_counters(visits.data_ptr(), tests.data_ptr(), turns.data_ptr(),
-                                     lanes.data_ptr())
+    err = lib.binary_walk_set_counters(visits.data_ptr(), tests.data_ptr(), turns.data_ptr(),
+                                       lanes.data_ptr())
     if err != 0:
-        raise RuntimeError(f"skip_walk_set_counters failed: cudaError {err}")
+        raise RuntimeError(f"binary_walk_set_counters failed: cudaError {err}")
     try:
-        out = (_anyhit_kernel("skip_anyhit", o, d, bvh, t_far, lib) if any_hit
-               else _closest_kernel("skip_closest", o, d, bvh, t_far, lib))
+        out = (_anyhit_kernel(kind, o, d, bvh, t_far, lib) if kind.endswith("anyhit")
+               else _closest_kernel(kind, o, d, bvh, t_far, lib))
         torch.cuda.synchronize(dev)
     finally:
-        lib.skip_walk_set_counters(None, None, None, None)
+        lib.binary_walk_set_counters(None, None, None, None)
     return out, visits, tests, turns, lanes
+
+
+def skip_walk_counts(o, d, bvh, t_far=None, any_hit: bool = False):
+    """walk_counts of the skip-link walk."""
+    return walk_counts("skip_anyhit" if any_hit else "skip_closest", o, d, bvh, t_far)
