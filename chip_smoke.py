@@ -6,7 +6,8 @@ against their plain torch versions.
 
 Phases (each asserts; any failure exits non-zero):
   1. build    — compile src/blink_torch/csrc/{wide_walk,sphere_pass,
-                binary_walk}.cu and binary_walk.cu's counting build
+                binary_walk}.cu and the counting builds of wide_walk.cu
+                (-DWIDE_WALK_COUNTS) and binary_walk.cu
                 (-DBINARY_WALK_COUNTS) with nvcc, in parallel, and print
                 ptxas's register, shared-memory and spill summaries;
   2. sphere   — the sphere kernel against its plain version on the 65,536
@@ -66,15 +67,18 @@ Phases (each asserts; any failure exits non-zero):
                 counts), row and stream against group bit for bit, skip
                 missing everything, group against the production walk;
                 each output against its plain version bit for bit, with
-                the counts and seen marks for its bound; its time. Then
-                the frame through render() on a layout-(a) backend under
-                BLINK_LEAF_MODE=group, row and stream: each frame's walks
-                against their plain versions bit for bit on their own
-                rays, identical images, each variant's launches; the
-                row/group time ratio of each layout (row is the unchanged
-                control for group's redesign); and the
-                production backend under BLINK_LEAF_MODE=row (group
-                launches).
+                the counts and seen marks for its bound; the counting
+                build's pops and tests of group, row and stream against
+                the plain walk's, ray for ray; its time, registers, spills
+                and resident warps an SM. Then the frame through render()
+                on a layout-(a) backend under BLINK_LEAF_MODE=group, row
+                and stream: each frame's walks against their plain
+                versions bit for bit on their own rays, identical images,
+                each variant's launches; the row/group and stream/group
+                time ratios of each layout (group, row and stream run one
+                design), with skip/group beside them (skip keeps the
+                earlier design: the control); and the production backend
+                under BLINK_LEAF_MODE=row (group launches).
  12. binary   — Sponza 1M in 9 packed SAH chunks of up to 120,000
                 triangles (leaf 16): the packed traversal drives the four
                 binary-walk entry points once; each against its plain
@@ -277,10 +281,11 @@ def only(**counts) -> dict:
 
 
 def phase_build() -> None:
-    """One nvcc per source, and one for binary_walk.cu's counting build, all
-    started together."""
+    """One nvcc per source, and one for each counting build, all started
+    together."""
     t0 = time.perf_counter()
-    builds = [(k, ()) for k in KERNELS] + [("binary_walk", tp.COUNTS_DEFINES)]
+    builds = [(k, ()) for k in KERNELS] + [("wide_walk", tw.COUNTS_DEFINES),
+                                           ("binary_walk", tp.COUNTS_DEFINES)]
     with ThreadPoolExecutor(len(builds)) as pool:
         for _ in pool.map(lambda b: _build.load(*b), builds):
             pass
@@ -292,13 +297,13 @@ def phase_build() -> None:
                 log(f"[build] {k}: {line.strip()}")
 
 
-def group_kernel_facts(any_hit: bool) -> dict:
+def wide_kernel_facts(any_hit: bool, mode: str = "group", quant: bool = True) -> dict:
     """Registers, local memory and resident warps an SM (the runtime) and
-    spilled bytes (ptxas) of a production walk, wide_group_walk<any_hit,
-    quantized boxes>."""
+    spilled bytes (ptxas) of a wide walk's kernel; by default a production
+    walk, wide_group_walk<any_hit, quantized boxes, group>."""
     spills = _build.ptxas_spills(_build.log_path("wide_walk").read_text())
-    [spill] = [v for k, v in spills.items() if f"15wide_group_walkILb{int(any_hit)}ELb1E" in k]
-    a = tw.kernel_attributes(any_hit, "group", True)
+    [spill] = [v for k, v in spills.items() if tw.kernel_symbol(any_hit, mode, quant) in k]
+    a = tw.kernel_attributes(any_hit, mode, quant)
     return {"registers": a["registers"], "spill_bytes": spill, "local_bytes": a["local_bytes"],
             "warps_per_sm": a["warps_per_sm"]}
 
@@ -496,7 +501,7 @@ def phase_frame(scene, backend, cfg, dev, errs):
         ("wide_anyhit", pops_a, tests_a, plain_a, seen_a, stf, 0),
     ):
         bound, by = wide_bound(name, chunks, "group", seen, pops, tests, n, tf is not None, hits)
-        facts = group_kernel_facts(name == "wide_anyhit")
+        facts = wide_kernel_facts(name == "wide_anyhit")
         before = PR5_MS[name][0]
         log(f"[bound] {name}: kernel {kern_ms[name]:.4f} ms = {bound / kern_ms[name]:.4f} "
             f"of the bound; PR 5's kernel {before} ms (PERF.md, {bound / before:.4f} of the "
@@ -1036,6 +1041,22 @@ def hold_to_plain(any_hit, rays, chunks, mode, out, label, tag: str = "leafmode"
     return err, pops, tests, seen, plain_ms
 
 
+def check_wide_counts(any_hit, rays, chunks, mode, out, pops, tests, label) -> None:
+    """The counting build of the wide walk (`mode`) on `rays`: its output
+    equal to the kernel's `out`, and each ray's pops and tests equal to the
+    plain walk's `pops` and `tests`."""
+    o, d, tf = rays
+    got, p, q = tw.walk_counts(any_hit, o, d, chunks, tf, leaf_mode=mode)
+    same_out = (torch.equal(got, out) if any_hit
+                else torch.equal(got[0], out[0]) and torch.equal(got[1], out[1]))
+    assert same_out, label
+    assert torch.equal(p, pops) and torch.equal(q, tests), (
+        label, int((p != pops).sum()), int((q != tests).sum()))
+    log(f"[leafmode] {label}: the counting build's pops and tests equal the plain walk's, "
+        f"ray for ray (a ray: {pops.double().mean().item():.3f} pops, "
+        f"{tests.double().mean().item():.3f} tests)")
+
+
 def phase_leafmode(scene, backend, cfg, dev, size: int = WIDTH):
     """Every leaf schedule and child-box layout of the wide walk on Sponza
     1M, over the layouts of LEAFMODE_LAYOUTS and the size x size frame's
@@ -1043,10 +1064,11 @@ def phase_leafmode(scene, backend, cfg, dev, size: int = WIDTH):
     wrapper (the counts), row and stream against group bit for bit, skip
     missing everything, group against the production walk; each output
     against its plain version, bit for bit, with the counts and seen marks
-    for its bound; the times. Then three frames through render() under
-    BLINK_LEAF_MODE=group|row|stream on layout (a): each frame's closest-
-    and any-hit calls against the plain versions bit for bit, the images
-    alike. Returns the rows of the new variants."""
+    for its bound; the counting build ray for ray (group, row, stream); the
+    times, registers, spills and warps. Then three frames through render()
+    under BLINK_LEAF_MODE=group|row|stream on layout (a): each frame's
+    closest- and any-hit calls against the plain versions bit for bit, the
+    images alike. Returns the rows of the new variants."""
     cam = scene.camera.origin.detach().cpu().numpy().astype(np.float32)
     o, d = primary_rays(scene, size, dev)
     t_prod, p_prod = tw.traverse_closest_wide(o, d, backend.chunks)
@@ -1099,8 +1121,12 @@ def phase_leafmode(scene, backend, cfg, dev, size: int = WIDTH):
                 hits = 0 if a else int((out[(a, mo)][1] >= 0).sum())
                 bound, by = wide_bound(name, chunks, mo, seen, pops, tests, n,
                                        rays[a][2] is not None, hits)
+                if mo != "skip":
+                    check_wide_counts(a, rays[a], chunks, mo, out[(a, mo)], pops, tests,
+                                      label)
+                facts = wide_kernel_facts(a, mo, quant)
                 log(f"[leafmode] {name} ({lay}): {ms:.4f} ms at {n} rays over {n_chunks} "
-                    f"chunks, {bound / ms:.4f} of the bound")
+                    f"chunks, {bound / ms:.4f} of the bound; {facts}")
                 if not report or (mo, quant) == ("group", True):
                     continue  # (c) is a measurement; group+quantized is rows 1-2
                 rows.append({
@@ -1108,14 +1134,19 @@ def phase_leafmode(scene, backend, cfg, dev, size: int = WIDTH):
                     "replaces": f"{REPLACES} (leaf_mode='{mo}', quant={quant})",
                     "launches": counts[name],
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                    "bound_by": by, "library_ms": None,
+                    "bound_by": by, "library_ms": None, **facts,
                 })
     for lay in ("a", "b"):
         quant = layouts[lay][0].quant
-        log(f"[leafmode] ({lay}) row against group, the unchanged control against the "
-            f"redesigned walk: " + ", ".join(
-                f"{base} {times[(lay, tw.launch_name(a, 'row', quant))] / times[(lay, tw.launch_name(a, 'group', quant))]:.3f}"
-                for a, base in ((False, "closest"), (True, "any hit"))))
+
+        def ratio(a, mo):
+            return times[(lay, tw.launch_name(a, mo, quant))] / times[
+                (lay, tw.launch_name(a, "group", quant))]
+
+        for mo in ("row", "stream", "skip"):
+            what = "the unchanged control" if mo == "skip" else "one design"
+            log(f"[leafmode] ({lay}) {mo} against group ({what}): closest "
+                f"{ratio(False, mo):.3f}, any hit {ratio(True, mo):.3f}")
     log("[leafmode] (a) group against PR 5's kernel (PERF.md): " + ", ".join(
         f"{base} {times[('a', tw.launch_name(a, 'group', True))]:.4f} against "
         f"{PR5_MS[base][1]} ms, {PR5_MS[base][1] / times[('a', tw.launch_name(a, 'group', True))]:.3f}x"

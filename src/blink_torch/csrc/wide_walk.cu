@@ -9,15 +9,17 @@
 //     slot, no decode);
 //   - leaf_mode='group': the leaf children that pass, tested at the
 //     parent's pop, triangles from the record table `tri`;
-//   - leaf_mode='row': the same leaves, triangles from the 8-triangle batch
-//     table `tbat` through `bref`; each batch's tests run against the best
-//     t at batch entry, the lowest slot wins among equal t, and the batch
-//     merges with a strict <, so the hits are group's bit for bit;
-//   - leaf_mode='stream': a leaf that passes is recorded (and its batches
-//     prefetched into L2) and tested at the ray's next leaf, or after the
-//     walk: a one-leaf deferral per thread, the counterpart of the TPU
-//     kernel's DMA double buffer. The walk then prunes with a best t one
-//     leaf late, visits a superset of group's nodes and finds group's hits;
+//   - leaf_mode='row': the same leaves in the same order, triangles from
+//     the 8-triangle batch table `tbat` through `bref` (the gid in the
+//     record); the TPU merges each batch against the best t at batch entry,
+//     lowest slot first among equal t, which is the sequential strict <
+//     merge's result, so the hits are group's bit for bit;
+//   - leaf_mode='stream': at each pop with leaves, the ray tests its
+//     pending leaf, then this pop's leaves but the last, which becomes the
+//     pending leaf; the last one is tested after the walk: a one-leaf
+//     deferral per thread, the counterpart of the TPU kernel's DMA double
+//     buffer. The walk then prunes with a best t one leaf late, pops a
+//     superset of group's nodes and finds group's hits;
 //   - leaf_mode='skip': the walk without leaf tests, for timing only (every
 //     ray misses): its time against group's splits a walk into node walk
 //     and leaf tests.
@@ -47,21 +49,23 @@
 // What bounds it on the H100. Not the arithmetic: a ray's slab and
 // triangle tests are a few thousand lane-instructions, a small share of the
 // SM cycles a walk takes. A walk waits on chains of dependent loads and on
-// lanes that diverge. In wide_walk below, a pop reads the stack, then the
-// octant order, and only then each child record; a leaf test loads its
-// 48-byte record only after the previous test's compare and branch; and a
-// warp runs the leaf loops of its lanes' eight near-first positions one
-// after another, so a lane with a 44-triangle leaf makes 44 serial L2 round
-// trips while the rest of its warp waits. The tables stay in global memory:
+// lanes that diverge. In the first design (wide_walk below, now the skip
+// schedule's alone), a pop reads the stack, then the octant order, and only
+// then each child record; a leaf test loads its record only after the
+// previous test's compare and branch; and a warp runs the leaf loops of its
+// lanes' eight near-first positions one after another, so a lane with a
+// 44-triangle leaf makes 44 serial L2 round trips while the rest of its
+// warp waits. The tables stay in global memory:
 // one chunk's node tables (~0.5 MB at 1M triangles) do not fit the 227 KB
 // of shared memory a block may use, and a 1M-triangle scene's tables fit
 // the 50 MB L2 or nearly.
 //
-// The production schedule, group, is redesigned around that
-// (wide_group_walk); the row, stream and skip schedules keep the design
-// above (wide_walk). The steps, each timed against the earlier group
-// kernel in one process by wide_walk_ab.py at 1,048,576 rays on Sponza 1M,
-// H100 80GB HBM3 at 700 W (PERF.md §6):
+// group, row and stream are redesigned around that, as one template
+// (wide_group_walk<ANY_HIT, QUANT, MODE>: MODE picks the record table and
+// stream's deferral); skip keeps the design above (wide_walk) until its own
+// redesign. The steps, each timed against the earlier build in one process
+// by wide_walk_ab.py at 1,048,576 rays on Sponza 1M, H100 80GB HBM3 at
+// 700 W (PERF.md §6), first for group:
 //   1. a pop issues all its loads together (the octant order, the node's
 //      96-byte child record as six 16-byte loads, its frame) and orders
 //      masks in registers; the nearest internal child that passed is the
@@ -81,6 +85,35 @@
 //   4. persistent warps that take 32 rays at a time from a counter, and one
 //      loop whose every turn is a pop or a batch lane by lane, were slower;
 //      dropped.
+// Then row and stream on group's walk (against their first design, the
+// parent):
+//   5. row: group's pop and cursor loop over the batch table, a turn one
+//      512-byte tbat row of 8 records, the gid read for the winner alone,
+//      a leaf's bref entry read as the leaf starts; kept: 0.600x / 0.611x
+//      the parent (closest / any hit, layout (a)), 0.551x / 0.684x on (b),
+//      1.2-1.5% over group on the same layout. The node's bref row issued
+//      with the pop's other loads (two int4s) instead tied on (a) and lost
+//      1.7% / 5.9% on (b), where its f32 kernels took 131-134 registers
+//      and 12 warps an SM; dropped;
+//   6. stream: the queue [pending leaf, this pop's leaves but the last] run
+//      by the same loop; kept: 0.611x / 0.643x the parent on (a), 0.621x /
+//      0.693x on (b), 1.06-1.13x row (closest hit: 26-27% more tests, the
+//      best t a leaf late; 1-3% more pops);
+//   7. stream: the pending leaf's first records staged in shared memory by
+//      cp.async while the walk goes on (the TPU's DMA double buffer; per
+//      thread, [record][float4][lane], no bank conflicts): 2.0-3.6x slower
+//      than 6 with 8, 4 or 2 records (cp.async.cg), 1.06-1.17x with
+//      L1-allocating copies (cp.async.ca), 2.3-2.7x with one cp.async.bulk
+//      of 4 records on a per-thread mbarrier; the copies alone, their
+//      records read from global memory, cost as much, while 48 KB of shared
+//      memory reserved and unused cost 0-2.6%: coherent rays find the
+//      pending leaf's records in L1, so staging hides no latency and adds
+//      traffic; dropped, as was an L2 prefetch of the pending leaf (1.006-
+//      1.031x slower without staging, a tie with it);
+//   8. a floor of 4 blocks an SM for row and stream (128 registers) spilled
+//      112-116 bytes in stream's f32 kernels and moved times by -1.3% to
+//      +1.1%; dropped: stream's f32 kernels keep 130-134 registers and 12
+//      warps an SM, the others 126-128 and 16.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -147,73 +180,19 @@ __device__ __forceinline__ float tri_t_rec(float ox, float oy, float oz,
   return valid ? t : kTMax;
 }
 
-// The same test, loading the record at `rec`.
-__device__ __forceinline__ float tri_t(float ox, float oy, float oz, float dx,
-                                       float dy, float dz, const float4* rec,
-                                       float t_min, float t_max) {
-  return tri_t_rec(ox, oy, oz, dx, dy, dz, __ldg(rec), __ldg(rec + 1),
-                   __ldg(rec + 2), t_min, t_max);
-}
-
 enum LeafMode { kGroup = 0, kRow = 1, kStream = 2, kSkip = 3 };  // LEAF_MODES
 
-// The triangles of one leaf child from the batch table: ceil(cnt/8) batches
-// of 8 records of 16 floats ([v0 e1 e2 gid slot] and padding, so a
-// record's first 12 floats read as tri_t's three float4s), from batch b0.
-// Each batch's tests run against the best t at batch entry; the first
-// minimum wins and merges with a strict <. Returns true at an any hit.
-template <bool ANY_HIT>
-__device__ __forceinline__ bool test_batches(
-    const float4* __restrict__ tbat, int b0, int cnt, float ox, float oy,
-    float oz, float dx, float dy, float dz, float t_min, float& best,
-    int& best_gid) {
-  for (int b = 0; 8 * b < cnt; ++b) {
-    const float4* bat = tbat + static_cast<size_t>(b0 + b) * 32;
-    const int m = min(8, cnt - 8 * b);
-    const float bt0 = best;
-    float bmin = bt0;
-    int jmin = -1;
-    for (int j = 0; j < m; ++j) {
-      const float t = tri_t(ox, oy, oz, dx, dy, dz, bat + 4 * j, t_min, bt0);
-      if (t < bmin) {
-        if (ANY_HIT) return true;
-        bmin = t;
-        jmin = j;
-      }
-    }
-    if (!ANY_HIT && jmin >= 0) {
-      best = bmin;
-      best_gid = static_cast<int>(__ldg(&bat[4 * jmin + 2].y));
-    }
-  }
-  return false;
-}
-
-// The L2 lines of a leaf's records in the batch table: its triangles lie
-// contiguously from the start of its first batch, 64 bytes each.
-__device__ __forceinline__ void prefetch_leaf(const float4* tbat, int b0,
-                                              int cnt) {
-  const char* p =
-      reinterpret_cast<const char*>(tbat + static_cast<size_t>(b0) * 32);
-  for (int l = 0; l < (cnt + 1) / 2; ++l) {
-    asm volatile("prefetch.global.L2 [%0];" ::"l"(p + 128 * l));
-  }
-}
-
-// The row, stream and skip schedules (group: wide_group_walk below).
-// Closest hit: t/prim hold the best so far (threaded across chunks) and are
-// updated where this chunk has a nearer hit. Any hit: t_in is t_far,
-// blocked is set where a hit lies in [t_min, min(t_far, T_MAX)); rays
+// The skip schedule, on the first design: the walk without leaf tests
+// (every ray misses). Closest hit: t/prim hold the best so far (threaded
+// across chunks); no hit changes them. Any hit: t_in is t_far; rays
 // already blocked by an earlier chunk do no work. child is int32 words
-// (QUANT) or floats; nbox is read only with QUANT, bref and tbat only by
-// the row and stream modes.
-template <bool ANY_HIT, bool QUANT, int MODE>
+// (QUANT) or floats; nbox is read only with QUANT.
+template <bool ANY_HIT, bool QUANT>
 __global__ void __launch_bounds__(kThreads)
     wide_walk(const float* __restrict__ o, const float* __restrict__ d,
               float* __restrict__ t_io, int* __restrict__ prim,
               bool* __restrict__ blocked, const void* __restrict__ child,
               const float* __restrict__ nbox, const int* __restrict__ perm,
-              const int* __restrict__ bref, const float4* __restrict__ tbat,
               int n, float t_min) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -223,9 +202,7 @@ __global__ void __launch_bounds__(kThreads)
   const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
   const int octant = (dx >= 0.0f ? 1 : 0) | (dy >= 0.0f ? 2 : 0) |
                      (dz >= 0.0f ? 4 : 0);
-  float best = ANY_HIT ? nan_min(t_io[i], kTMax) : t_io[i];
-  int best_hit = -1;  // the winning gid
-  int pend_b = 0, pend_c = 0;  // stream: the recorded leaf (cnt 0: none)
+  const float best = ANY_HIT ? nan_min(t_io[i], kTMax) : t_io[i];
 
   int stack[WIDE_STACK_CAP];
   int sp = 0;
@@ -269,67 +246,32 @@ __global__ void __launch_bounds__(kThreads)
         need |= (hit ? 1u : 0u) << k;
       }
     }
-    // Leaf children of this pop, in near-first order.
-    if constexpr (MODE != kSkip) {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        if (!((need >> k) & 1u) || cnt[k] <= 0) continue;
-        const int b0 = __ldg(bref + node * 8 + ((pm >> (3 * k)) & 7));
-        if constexpr (MODE == kRow) {
-          if (test_batches<ANY_HIT>(tbat, b0, cnt[k], ox, oy, oz, dx, dy, dz,
-                                    t_min, best, best_hit)) {
-            blocked[i] = true;
-            return;
-          }
-        } else {  // kStream: test the recorded leaf, record this one
-          if (pend_c > 0 &&
-              test_batches<ANY_HIT>(tbat, pend_b, pend_c, ox, oy, oz, dx, dy,
-                                    dz, t_min, best, best_hit)) {
-            blocked[i] = true;
-            return;
-          }
-          pend_b = b0;
-          pend_c = cnt[k];
-          prefetch_leaf(tbat, b0, pend_c);
-        }
-      }
-    }
     // Internal children, pushed far to near so the nearest pops first.
 #pragma unroll
     for (int k = 7; k >= 0; --k) {
       if (((need >> k) & 1u) && cnt[k] == 0 && ref[k] > 0) stack[sp++] = ref[k];
     }
   }
-  if constexpr (MODE == kStream) {
-    if (pend_c > 0 && test_batches<ANY_HIT>(tbat, pend_b, pend_c, ox, oy, oz,
-                                            dx, dy, dz, t_min, best, best_hit)) {
-      blocked[i] = true;
-      return;
-    }
-  }
-  if (!ANY_HIT && best_hit >= 0) {
-    t_io[i] = best;
-    prim[i] = best_hit;
-  }
 }
 
 // ---------------------------------------------------------------------------
-// group: the production schedule, redesigned to hide latency (the note at
-// the head of this file). kBatch is the number of a leaf's triangle
-// records loaded together before the first of them is tested. A build
-// with -DWIDE_GROUP_COUNTS (wide_walk_ab.py --counts) counts each ray's
+// group, row and stream: one walk, redesigned to hide latency (the note at
+// the head of this file). kBatch is the number of a leaf's triangle records
+// loaded together before the first of them is tested: with the row tables,
+// one 512-byte batch of tbat. A build with -DWIDE_WALK_COUNTS
+// (wide_walk_ab.py --counts, traverse_wide.walk_counts) counts each ray's
 // pops and tests, to check them against the plain walk's.
 constexpr int kBatch = 8;
 
-#ifdef WIDE_GROUP_COUNTS
-// A counting build (wide_walk_ab.py --counts): each ray adds its pops and
-// triangle tests to these per-ray counters when they are set.
-__device__ long long* g_group_pops = nullptr;
-__device__ long long* g_group_tests = nullptr;
-#define WIDE_GROUP_COUNT(counter, i) \
+#ifdef WIDE_WALK_COUNTS
+// A counting build: each ray adds its pops and triangle tests to these
+// per-ray counters when they are set.
+__device__ long long* g_walk_pops = nullptr;
+__device__ long long* g_walk_tests = nullptr;
+#define WIDE_WALK_COUNT(counter, i) \
   if (counter) ++counter[i]
 #else
-#define WIDE_GROUP_COUNT(counter, i)
+#define WIDE_WALK_COUNT(counter, i)
 #endif
 
 // a[i] for a register array and a lane-varying i, by selects: indexing the
@@ -355,30 +297,93 @@ __device__ __forceinline__ int lowest(unsigned m) {
   return __ffs(static_cast<int>(m)) - 1;
 }
 
-// Closest hit and any hit under the group schedule: wide_walk's arguments,
-// with the record table (tri, tri_id) in place of the batch tables. Each
-// ray sees what the plain walk (kernels/traverse_wide.py, group) gives it:
-// the same pops in the same order, the children in its octant's near-first
-// order, a leaf's triangles in slot order against the running best t with
-// a strict < merge. What differs is when loads are issued and where state
-// lives:
+// The leaf tests of one pop as one loop over a cursor: the records [s, e)
+// of the leaf under way (stream: the pending leaf), then each leaf of lf_k
+// (near-first positions in the order pm; by child slot, the count from cnt
+// and the first record from ref, or for row and stream kBatch times the
+// leaf's first batch in the node's bref row `brow`, read as the leaf
+// starts). Each turn loads up to kBatch records of the leaf, each load
+// predicated on the leaf's end, and tests them in slot order against the
+// running best with a strict <. Returns true at an any hit.
+template <bool ANY_HIT, int MODE>
+__device__ __forceinline__ bool leaf_loop(
+    const float4* __restrict__ recs, const int* __restrict__ brow, int s,
+    int e, unsigned lf_k, int pm, const int (&ref)[8], const int (&cnt)[8],
+    float ox, float oy, float oz, float dx, float dy, float dz, float t_min,
+    float& best, int& best_hit, int i) {
+  // Float4s a record: tri's 48-byte records [v0 e1 e2], tbat's 64-byte
+  // ones [v0 e1 e2 gid slot] and padding.
+  constexpr int kRec = MODE == kGroup ? 3 : 4;
+  while (s < e || lf_k) {
+    if (s >= e) {
+      const int c8 = (pm >> (3 * lowest(lf_k))) & 7;
+      lf_k &= lf_k - 1;
+      s = MODE == kGroup ? pick8(ref, c8) : kBatch * __ldg(brow + c8);
+      e = s + pick8(cnt, c8);
+    }
+    float4 ra[kBatch], rb[kBatch];
+    float rc[kBatch];  // e2.z, the only float of the third float4 read
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      if (s + j < e) {
+        const float4* rec = recs + kRec * (s + j);
+        ra[j] = __ldg(rec);
+        rb[j] = __ldg(rec + 1);
+        rc[j] = __ldg(reinterpret_cast<const float*>(rec + 2));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      if (s + j < e) {
+        WIDE_WALK_COUNT(g_walk_tests, i);
+        const float t = tri_t_rec(ox, oy, oz, dx, dy, dz, ra[j], rb[j],
+                                  make_float4(rc[j], 0.0f, 0.0f, 0.0f), t_min,
+                                  best);
+        if (t < best) {
+          if (ANY_HIT) return true;
+          best = t;
+          best_hit = s + j;
+        }
+      }
+    }
+    s += kBatch;
+  }
+  return false;
+}
+
+// Closest hit and any hit under the group, row and stream schedules.
+// Closest hit: t/prim hold the best so far (threaded across chunks) and are
+// updated where this chunk has a nearer hit. Any hit: t_in is t_far,
+// blocked is set where a hit lies in [t_min, min(t_far, T_MAX)); rays
+// already blocked by an earlier chunk do no work. child is int32 words
+// (QUANT) or floats; nbox is read only with QUANT. recs is the record
+// table: tri (group; gids in tri_id) or tbat (row and stream; a leaf's
+// first batch in bref). Each ray sees what the plain walk
+// (kernels/traverse_wide.py) gives it under the same schedule: the same
+// pops in the same order, the children in its octant's near-first order, a
+// leaf's triangles in slot order against the running best t with a strict
+// < merge (row's per-batch merge in the plain walk gives the same result:
+// traverse_wide._leaf_tests). What differs is when loads are issued and
+// where state lives:
 //   - a pop issues all its loads at once (the octant order, the 8 child
 //     records as 16-byte loads, the frame), slab-tests the children in slot
 //     order into masks, and applies the order to the masks in registers;
 //   - the nearest internal child that passed is the next node without a
 //     trip through the stack, and the rest are pushed far to near, before
 //     the leaf tests (which cannot change them);
-//   - the leaves of a pop run as one loop over a cursor (leaf mask, next
-//     slot, end slot); each turn loads up to kBatch records of the leaf,
-//     each load predicated on the leaf's own end, then tests them in order.
-template <bool ANY_HIT, bool QUANT>
+//   - the leaves of a pop run as one loop over a cursor (leaf_loop);
+//   - stream: the queue is [the pending leaf, this pop's leaves but the
+//     last], and the last becomes the pending leaf, tested at the ray's
+//     next leaf-bearing pop or after the walk.
+template <bool ANY_HIT, bool QUANT, int MODE>
 __global__ void __launch_bounds__(kThreads)
     wide_group_walk(const float* __restrict__ o, const float* __restrict__ d,
                     float* __restrict__ t_io, int* __restrict__ prim,
                     bool* __restrict__ blocked, const void* __restrict__ child,
                     const float* __restrict__ nbox, const int* __restrict__ perm,
-                    const float4* __restrict__ tri,
-                    const int* __restrict__ tri_id, int n, float t_min) {
+                    const float4* __restrict__ recs,
+                    const int* __restrict__ tri_id,
+                    const int* __restrict__ bref, int n, float t_min) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   if (ANY_HIT && blocked[i]) return;
@@ -388,16 +393,18 @@ __global__ void __launch_bounds__(kThreads)
   const int octant = (dx >= 0.0f ? 1 : 0) | (dy >= 0.0f ? 2 : 0) |
                      (dz >= 0.0f ? 4 : 0);
   float best = ANY_HIT ? nan_min(t_io[i], kTMax) : t_io[i];
-  int best_hit = -1;  // the winning record slot
+  int best_hit = -1;  // the winning record
+  int pend_s = 0, pend_c = 0;  // stream: the pending leaf (count 0: none)
   int stack[WIDE_STACK_CAP];
   int sp = 0;
+  int ref[8], cnt[8];  // by child slot: first record (or child node), count
 
   int node = 0;
   while (node >= 0) {
     // The pop: every load issued together, the slab tests by slot.
-    WIDE_GROUP_COUNT(g_group_pops, i);
+    WIDE_WALK_COUNT(g_walk_pops, i);
     const int pm = __ldg(perm + node * 8 + octant);
-    int ref[8], cnt[8];
+    const int* brow = bref + node * 8;
     unsigned leaf = 0, inner = 0;  // children that passed, by slot
     if constexpr (QUANT) {
       const int4* cw = reinterpret_cast<const int4*>(child) + node * 6;
@@ -455,52 +462,44 @@ __global__ void __launch_bounds__(kThreads)
       node = sp > 0 ? stack[--sp] : -1;
     }
 
-    // The leaves that passed, near first, as one loop over a cursor: lf_k
-    // (leaves not begun, by near-first position) and the slots [s, e) of
-    // the leaf under test.
+    // The leaves that passed, near first (lf_k: by near-first position).
     unsigned lf_k = by_order(leaf, pm);
     int s = 0, e = 0;
-    while (s < e || lf_k) {
-      if (s >= e) {
-        const int c8 = (pm >> (3 * lowest(lf_k))) & 7;
-        lf_k &= lf_k - 1;
-        s = pick8(ref, c8);
-        e = s + pick8(cnt, c8);
-      }
-      float4 ra[kBatch], rb[kBatch];
-      float rc[kBatch];  // e2.z, the only float of the third float4 read
-#pragma unroll
-      for (int j = 0; j < kBatch; ++j) {
-        if (s + j < e) {
-          const float4* rec = tri + 3 * (s + j);
-          ra[j] = __ldg(rec);
-          rb[j] = __ldg(rec + 1);
-          rc[j] = __ldg(reinterpret_cast<const float*>(rec + 2));
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kBatch; ++j) {
-        if (s + j < e) {
-          WIDE_GROUP_COUNT(g_group_tests, i);
-          const float t = tri_t_rec(ox, oy, oz, dx, dy, dz, ra[j], rb[j],
-                                    make_float4(rc[j], 0.0f, 0.0f, 0.0f),
-                                    t_min, best);
-          if (t < best) {
-            if (ANY_HIT) {
-              blocked[i] = true;
-              return;
-            }
-            best = t;
-            best_hit = s + j;
-          }
-        }
-      }
-      s += kBatch;
+    if constexpr (MODE == kStream) {
+      // The pending leaf first, then all of this pop's leaves but the
+      // last, which becomes the pending leaf.
+      if (!lf_k) continue;
+      const int k = 31 - __clz(static_cast<int>(lf_k));
+      lf_k &= ~(1u << k);
+      const int c8 = (pm >> (3 * k)) & 7;
+      s = pend_s;
+      e = pend_s + pend_c;
+      pend_s = kBatch * __ldg(brow + c8);
+      pend_c = pick8(cnt, c8);
+    }
+    if (leaf_loop<ANY_HIT, MODE>(recs, brow, s, e, lf_k, pm, ref, cnt, ox, oy,
+                                 oz, dx, dy, dz, t_min, best, best_hit, i)) {
+      blocked[i] = true;
+      return;
+    }
+  }
+  if constexpr (MODE == kStream) {  // the pending leaf, after the walk
+    if (pend_c > 0 &&
+        leaf_loop<ANY_HIT, MODE>(recs, bref, pend_s, pend_s + pend_c, 0u, 0, ref,
+                                 cnt, ox, oy, oz, dx, dy, dz, t_min, best,
+                                 best_hit, i)) {
+      blocked[i] = true;
+      return;
     }
   }
   if (!ANY_HIT && best_hit >= 0) {
     t_io[i] = best;
-    prim[i] = __ldg(tri_id + best_hit);
+    if constexpr (MODE == kGroup) {
+      prim[i] = __ldg(tri_id + best_hit);
+    } else {  // the gid, float 9 of the winning tbat record
+      prim[i] = static_cast<int>(
+          __ldg(reinterpret_cast<const float*>(recs + 4 * best_hit + 2) + 1));
+    }
   }
 }
 
@@ -511,24 +510,27 @@ int launch_mode(int mode, const float* o, const float* d, float* t_io,
                 const int* bref, const float* tbat, int n, float t_min,
                 cudaStream_t stream) {
   const int blocks = (n + kThreads - 1) / kThreads;
+  const float4* tr = reinterpret_cast<const float4*>(tri);
   const float4* tb = reinterpret_cast<const float4*>(tbat);
   switch (mode) {
     case kGroup:
-      wide_group_walk<ANY_HIT, QUANT><<<blocks, kThreads, 0, stream>>>(
-          o, d, t_io, prim, blocked, child, nbox, perm,
-          reinterpret_cast<const float4*>(tri), tri_id, n, t_min);
+      wide_group_walk<ANY_HIT, QUANT, kGroup><<<blocks, kThreads, 0, stream>>>(
+          o, d, t_io, prim, blocked, child, nbox, perm, tr, tri_id, bref, n,
+          t_min);
       break;
     case kRow:
-      wide_walk<ANY_HIT, QUANT, kRow><<<blocks, kThreads, 0, stream>>>(
-          o, d, t_io, prim, blocked, child, nbox, perm, bref, tb, n, t_min);
+      wide_group_walk<ANY_HIT, QUANT, kRow><<<blocks, kThreads, 0, stream>>>(
+          o, d, t_io, prim, blocked, child, nbox, perm, tb, tri_id, bref, n,
+          t_min);
       break;
     case kStream:
-      wide_walk<ANY_HIT, QUANT, kStream><<<blocks, kThreads, 0, stream>>>(
-          o, d, t_io, prim, blocked, child, nbox, perm, bref, tb, n, t_min);
+      wide_group_walk<ANY_HIT, QUANT, kStream><<<blocks, kThreads, 0, stream>>>(
+          o, d, t_io, prim, blocked, child, nbox, perm, tb, tri_id, bref, n,
+          t_min);
       break;
     case kSkip:
-      wide_walk<ANY_HIT, QUANT, kSkip><<<blocks, kThreads, 0, stream>>>(
-          o, d, t_io, prim, blocked, child, nbox, perm, bref, tb, n, t_min);
+      wide_walk<ANY_HIT, QUANT><<<blocks, kThreads, 0, stream>>>(
+          o, d, t_io, prim, blocked, child, nbox, perm, n, t_min);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -541,13 +543,13 @@ template <bool ANY_HIT, bool QUANT>
 const void* kernel_of(int mode) {
   switch (mode) {
     case kGroup:
-      return reinterpret_cast<const void*>(&wide_group_walk<ANY_HIT, QUANT>);
+      return reinterpret_cast<const void*>(&wide_group_walk<ANY_HIT, QUANT, kGroup>);
     case kRow:
-      return reinterpret_cast<const void*>(&wide_walk<ANY_HIT, QUANT, kRow>);
+      return reinterpret_cast<const void*>(&wide_group_walk<ANY_HIT, QUANT, kRow>);
     case kStream:
-      return reinterpret_cast<const void*>(&wide_walk<ANY_HIT, QUANT, kStream>);
+      return reinterpret_cast<const void*>(&wide_group_walk<ANY_HIT, QUANT, kStream>);
     case kSkip:
-      return reinterpret_cast<const void*>(&wide_walk<ANY_HIT, QUANT, kSkip>);
+      return reinterpret_cast<const void*>(&wide_walk<ANY_HIT, QUANT>);
   }
   return nullptr;
 }
@@ -607,13 +609,13 @@ extern "C" int wide_walk_attributes(int any_hit, int quant, int mode,
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], f, out[3], 0));
 }
 
-#ifdef WIDE_GROUP_COUNTS
+#ifdef WIDE_WALK_COUNTS
 // Sets the counting build's per-ray counters ((n,) int64 each, or null to
 // stop counting). Returns a cudaError_t.
 extern "C" int wide_walk_set_counters(long long* pops, long long* tests) {
-  cudaError_t err = cudaMemcpyToSymbol(g_group_pops, &pops, sizeof(pops));
+  cudaError_t err = cudaMemcpyToSymbol(g_walk_pops, &pops, sizeof(pops));
   if (err == cudaSuccess) {
-    err = cudaMemcpyToSymbol(g_group_tests, &tests, sizeof(tests));
+    err = cudaMemcpyToSymbol(g_walk_tests, &tests, sizeof(tests));
   }
   return static_cast<int>(err);
 }

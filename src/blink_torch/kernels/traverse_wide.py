@@ -517,18 +517,41 @@ def anyhit_wide_plain(o, d, chunks, t_far, t_min: float = T_MIN,
 # --------------------------------------------------------------------------
 
 
-def _lib():
-    from blink_torch.kernels import _build
+#: The -D flag of wide_walk.cu's counting build (walk_counts).
+COUNTS_DEFINES = ("WIDE_WALK_COUNTS",)
 
-    lib = _build.load("wide_walk")
+
+def typed(lib):
+    """`lib`, a loaded build of wide_walk.cu (this tree's or another
+    checkout's), with its entry points' argument types set."""
     if not getattr(lib, "_blink_typed", False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.wide_walk_launch.argtypes = [i32] * 3 + [ptr] * 12 + [i32, f32, ptr]
         lib.wide_walk_launch.restype = i32
-        lib.wide_walk_attributes.argtypes = [i32, i32, i32, ptr]
-        lib.wide_walk_attributes.restype = i32
+        for k, args in (("wide_walk_attributes", [i32, i32, i32, ptr]),
+                        ("wide_walk_set_counters", [ptr, ptr])):
+            if hasattr(lib, k):
+                getattr(lib, k).argtypes = args
+                getattr(lib, k).restype = i32
         lib._blink_typed = True
     return lib
+
+
+def _lib(defines: tuple[str, ...] = ()):
+    """wide_walk.cu's library built with `defines`, typed."""
+    from blink_torch.kernels import _build
+
+    return typed(_build.load("wide_walk", defines))
+
+
+def kernel_symbol(any_hit: bool, mode: str, quant: bool) -> str:
+    """The part of a variant's mangled kernel name (in ptxas's report) that
+    tells it from the others: wide_group_walk<any_hit, quant, mode> for
+    group, row and stream, wide_walk<any_hit, quant> for skip."""
+    a, q = int(any_hit), int(quant)
+    if mode == "skip":
+        return f"9wide_walkILb{a}ELb{q}EE"
+    return f"15wide_group_walkILb{a}ELb{q}ELi{LEAF_MODES.index(mode)}EE"
 
 
 def kernel_attributes(any_hit: bool, leaf_mode: str, quant: bool, lib=None) -> dict:
@@ -546,9 +569,11 @@ def kernel_attributes(any_hit: bool, leaf_mode: str, quant: bool, lib=None) -> d
             "threads": out[3], "warps_per_sm": out[2] * out[3] // 32}
 
 
-def _launch(any_hit: bool, mode: str, o, d, c: WideChunk, out0, out1, t_min: float) -> None:
+def _launch(any_hit: bool, mode: str, o, d, c: WideChunk, out0, out1, t_min: float,
+            lib=None) -> None:
     """One kernel launch over one chunk. Closest: out0 = t (in/out), out1 =
-    prim (in/out). Any hit: out0 = t_far, out1 = blocked (in/out)."""
+    prim (in/out). Any hit: out0 = t_far, out1 = blocked (in/out). `lib`:
+    another build of wide_walk.cu, whose launches LAUNCHES does not count."""
     n = o.shape[0]
     dev = o.device
     check_arg("o", o, torch.float32, (n, 3), dev)
@@ -571,16 +596,17 @@ def _launch(any_hit: bool, mode: str, o, d, c: WideChunk, out0, out1, t_min: flo
     if mode in ("row", "stream"):
         check_arg("bref", c.bref, torch.int32, (nw * 8,), dev)
         check_arg("tbat", c.tbat, torch.float32, (c.tbat.shape[0], 8, 16), dev)
-        aligned.append(c.tbat)
+        aligned += [c.bref, c.tbat]
     if any(x.data_ptr() % 16 for x in aligned):
-        raise ValueError("tri, child, nbox and tbat must be 16-byte aligned (read as float4)")
+        raise ValueError("tri, child, nbox, bref and tbat must be 16-byte aligned "
+                         "(read as float4/int4)")
     if n == 0:
         return
 
     def ptr(x):
         return None if x is None else x.data_ptr()
 
-    err = _lib().wide_walk_launch(
+    err = (lib or _lib()).wide_walk_launch(
         int(any_hit), int(c.quant), LEAF_MODES.index(mode), o.data_ptr(), d.data_ptr(),
         out0.data_ptr(), None if any_hit else out1.data_ptr(),
         out1.data_ptr() if any_hit else None, c.child.data_ptr(), ptr(c.nbox),
@@ -589,7 +615,8 @@ def _launch(any_hit: bool, mode: str, o, d, c: WideChunk, out0, out1, t_min: flo
     name = launch_name(any_hit, mode, c.quant)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
+    if lib is None:
+        LAUNCHES[name] += 1
 
 
 def traverse_closest_wide(o, d, chunks, t_far=None, t_min: float = T_MIN,
@@ -602,7 +629,11 @@ def traverse_closest_wide(o, d, chunks, t_far=None, t_min: float = T_MIN,
     if not o.is_cuda:
         return closest_wide_plain(o, d, chunks, t_far, t_min, leaf_mode=leaf_mode)
     _check_chunks(chunks)
-    mode = _resolve_leaf_mode(chunks, leaf_mode, False)
+    return _closest_kernel(_resolve_leaf_mode(chunks, leaf_mode, False), o, d, chunks,
+                           t_far, t_min)
+
+
+def _closest_kernel(mode: str, o, d, chunks, t_far, t_min: float, lib=None):
     n = o.shape[0]
     t = torch.full((n,), T_MAX, dtype=torch.float32, device=o.device)
     if t_far is not None:
@@ -610,7 +641,7 @@ def traverse_closest_wide(o, d, chunks, t_far=None, t_min: float = T_MIN,
     prim = torch.full((n,), -1, dtype=torch.int32, device=o.device)
     o, d = o.contiguous(), d.contiguous()
     for c in chunks:
-        _launch(False, mode, o, d, c, t, prim, t_min)
+        _launch(False, mode, o, d, c, t, prim, t_min, lib)
     return t, prim
 
 
@@ -622,10 +653,41 @@ def traverse_anyhit_wide(o, d, chunks, t_far, t_min: float = T_MIN,
     if not o.is_cuda:
         return anyhit_wide_plain(o, d, chunks, t_far, t_min, leaf_mode=leaf_mode)
     _check_chunks(chunks)
-    mode = _resolve_leaf_mode(chunks, leaf_mode, True)
+    return _anyhit_kernel(_resolve_leaf_mode(chunks, leaf_mode, True), o, d, chunks, t_far,
+                          t_min)
+
+
+def _anyhit_kernel(mode: str, o, d, chunks, t_far, t_min: float, lib=None):
     blocked = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
     o, d = o.contiguous(), d.contiguous()
     tf = t_far.to(torch.float32).contiguous()
     for c in chunks:
-        _launch(True, mode, o, d, c, tf, blocked, t_min)
+        _launch(True, mode, o, d, c, tf, blocked, t_min, lib)
     return blocked
+
+
+def walk_counts(any_hit: bool, o, d, chunks, t_far=None, t_min: float = T_MIN,
+                leaf_mode: str | None = None, lib=None):
+    """The walk of (any_hit, leaf_mode) through wide_walk.cu's counting build
+    (`lib`, or this tree's), on CUDA tensors: (output, pops, tests). The
+    output is traverse_closest_wide's (t, prim) or traverse_anyhit_wide's
+    blocked flags; pops and tests (N,) int64 are each ray's node pops and
+    triangle tests summed over the chunks, as closest_wide_plain /
+    anyhit_wide_plain(..., counts=True) count them (group, row and stream;
+    the skip walk counts nothing)."""
+    _check_chunks(chunks)
+    mode = _resolve_leaf_mode(chunks, leaf_mode, any_hit)
+    lib = lib or _lib(COUNTS_DEFINES)
+    n, dev = o.shape[0], o.device
+    pops = torch.zeros(n, dtype=torch.int64, device=dev)
+    tests = torch.zeros_like(pops)
+    err = lib.wide_walk_set_counters(pops.data_ptr(), tests.data_ptr())
+    if err != 0:
+        raise RuntimeError(f"wide_walk_set_counters failed: cudaError {err}")
+    try:
+        out = (_anyhit_kernel(mode, o, d, chunks, t_far, t_min, lib) if any_hit
+               else _closest_kernel(mode, o, d, chunks, t_far, t_min, lib))
+        torch.cuda.synchronize(dev)
+    finally:
+        lib.wide_walk_set_counters(None, None)
+    return out, pops, tests
