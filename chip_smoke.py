@@ -6,11 +6,15 @@ against their plain torch versions.
 
 Phases (each asserts; any failure exits non-zero):
   1. build    — compile src/blink_torch/csrc/{wide_walk,sphere_pass,
-                binary_walk}.cu and the counting builds of wide_walk.cu
+                binary_walk}.cu, the counting builds of wide_walk.cu
                 (-DWIDE_WALK_COUNTS) and binary_walk.cu
-                (-DBINARY_WALK_COUNTS) with nvcc, in parallel, and print
-                ptxas's register, shared-memory and spill summaries;
-  2. sphere   — the sphere kernel against its plain version on the 65,536
+                (-DBINARY_WALK_COUNTS) and the empty build of
+                sphere_pass.cu (-DSPHERE_PASS_EMPTY) with nvcc, in
+                parallel, and print ptxas's register, shared-memory and
+                spill summaries;
+  2. sphere   — the sphere kernel's two entries (sphere_pass, and
+                sphere_merge, which merges the pass into a closest hit)
+                against their plain versions bit for bit on the 65,536
                 primary rays of Cornell at 256x256 plus 65,536 random rays,
                 with 8 and 64 spheres and a duplicated set (tied minima),
                 caps of T_MAX, finite values and 0;
@@ -20,8 +24,13 @@ Phases (each asserts; any failure exits non-zero):
   4. config 3 — Cornell 256x256 through backend='pallas': render_grad of
                 sphere_center and albedo on the card against the same call
                 on the CPU, the albedo finite-difference probe, 10 fit
-                steps that lower the loss, the time of a fit step, and the
-                sphere kernel timed on the path's own inputs;
+                steps that lower the loss, the time of a fit step; every
+                recorded sphere call held bit for bit, and on the path's
+                own inputs the sphere kernel's device time, its empty
+                build's (the floor; also at 1,048,576 rays), the wrapper
+                calls' times, the launches the caller made around the
+                kernel before (the merge, the table's torch.cat), and the
+                kernel's registers and resident warps an SM;
   5. parity   — on the 1M-triangle Sponza scene with the production BVH,
                 the closest-hit and any-hit kernels against their plain
                 versions on 65,536 primary rays (every 16th of the
@@ -53,7 +62,10 @@ Phases (each asserts; any failure exits non-zero):
                 the image without compaction identical; 3 timed frames,
                 camera samples/s, peak memory and one profiled frame. Rows
                 1-2 of the kernels line gain the frame's launches and the
-                walks' summed time and bound (config4_*);
+                walks' summed time and bound (config4_*). After the
+                launch asserts, each bounce's skip walk on the same inputs
+                is timed beside group's (skip/group on one design), with
+                both counting builds' pops;
  10. config 5 — the pod preset's per-card unit (4096x512, 1 spp, depth 4,
                 compact, rr_start 1): launches, the first bounce's walks
                 against the plain ones on every 32nd ray, 3 timed frames;
@@ -68,17 +80,17 @@ Phases (each asserts; any failure exits non-zero):
                 missing everything, group against the production walk;
                 each output against its plain version bit for bit, with
                 the counts and seen marks for its bound; the counting
-                build's pops and tests of group, row and stream against
-                the plain walk's, ray for ray; its time, registers, spills
-                and resident warps an SM. Then the frame through render()
+                build's pops and tests of every schedule against the plain
+                walk's, ray for ray; its time, registers, spills and
+                resident warps an SM. Then the frame through render()
                 on a layout-(a) backend under BLINK_LEAF_MODE=group, row
                 and stream: each frame's walks against their plain
                 versions bit for bit on their own rays, identical images,
-                each variant's launches; the row/group and stream/group
-                time ratios of each layout (group, row and stream run one
-                design), with skip/group beside them (skip keeps the
-                earlier design: the control); and the production backend
-                under BLINK_LEAF_MODE=row (group launches).
+                each variant's launches; the row/group, stream/group and
+                skip/group time ratios of each layout (every schedule runs
+                one design) with 1 - skip/group, the leaf tests' share of a
+                group walk; and the production backend under
+                BLINK_LEAF_MODE=row (group launches).
  12. binary   — Sponza 1M in 9 packed SAH chunks of up to 120,000
                 triangles (leaf 16): the packed traversal drives the four
                 binary-walk entry points once; each against its plain
@@ -190,6 +202,10 @@ KERNELS = ("wide_walk", "sphere_pass", "binary_walk")
 #: this script's run on an H100 80GB HBM3 at 700 W (PERF.md §6, rows 1-2,
 #: PR 5). Printed in the log beside this run's times; not in the kernels line.
 PR5_MS = {"wide_closest": (1.6699, 2.8132), "wide_anyhit": (1.1791, 1.8534)}
+#: The skip schedule's times on its first design (ms at 1,048,576 rays, by
+#: layout, closest and any hit), from this script's run on an H100 80GB
+#: HBM3 at 700 W (PERF.md §6, row 3c). For the log only.
+FIRST_SKIP_MS = {"a": (0.7606, 0.6942), "b": (0.7626, 0.6694), "c": (0.6124, 0.5402)}
 
 
 def log(*a) -> None:
@@ -285,7 +301,8 @@ def phase_build() -> None:
     together."""
     t0 = time.perf_counter()
     builds = [(k, ()) for k in KERNELS] + [("wide_walk", tw.COUNTS_DEFINES),
-                                           ("binary_walk", tp.COUNTS_DEFINES)]
+                                           ("binary_walk", tp.COUNTS_DEFINES),
+                                           ("sphere_pass", ks.EMPTY_DEFINES)]
     with ThreadPoolExecutor(len(builds)) as pool:
         for _ in pool.map(lambda b: _build.load(*b), builds):
             pass
@@ -357,15 +374,15 @@ class Recorder:
     and outputs of the main path's calls."""
 
     NAMES = ("traverse_closest_wide", "traverse_anyhit_wide", "sphere_pass",
-             "traverse_closest_packed", "traverse_anyhit_packed")
+             "sphere_merge", "traverse_closest_packed", "traverse_anyhit_packed")
 
     def __init__(self):
         self.calls = {"wide_closest": [], "wide_anyhit": [], "sphere_pass": [],
-                      "packed_closest": [], "packed_anyhit": []}
+                      "sphere_merge": [], "packed_closest": [], "packed_anyhit": []}
         self._orig = {n: getattr(kapi, n) for n in self.NAMES}
 
     def __enter__(self):
-        fc, fa, fs, pc, pa = (self._orig[n] for n in self.NAMES)
+        fc, fa, fs, fm, pc, pa = (self._orig[n] for n in self.NAMES)
 
         def closest(o, d, chunks, t_far=None, leaf_mode=None):
             out = fc(o, d, chunks, t_far=t_far, leaf_mode=leaf_mode)
@@ -384,6 +401,13 @@ class Recorder:
                  t_max.clone(), out))
             return out
 
+        def merge(o, d, center, radius, t_min, t, kind, prim):
+            out = fm(o, d, center, radius, t_min, t, kind, prim)
+            self.calls["sphere_merge"].append(
+                (o.clone(), d.clone(), center.clone(), radius.clone(), t_min,
+                 (t.clone(), kind.clone(), prim.clone()), out))
+            return out
+
         def packed_closest(o, d, bvh, t_far=None, variant=tp.CLOSEST_VARIANT):
             out = pc(o, d, bvh, t_far=t_far, variant=variant)
             self.calls["packed_closest"].append((o.clone(), d.clone(), variant, out))
@@ -395,7 +419,8 @@ class Recorder:
                 (o.clone(), d.clone(), t_far.clone(), variant, out))
             return out
 
-        for n, f in zip(self.NAMES, (closest, anyhit, sphere, packed_closest, packed_anyhit)):
+        for n, f in zip(self.NAMES, (closest, anyhit, sphere, merge, packed_closest,
+                                     packed_anyhit)):
             setattr(kapi, n, f)
         return self
 
@@ -553,24 +578,32 @@ def primary_rays(scene, size: int, dev, jitter: bool = True):
 
 
 def check_sphere(o, d, center, radius, caps, label):
-    """The sphere kernel against its plain version; returns (max |t|
-    error, prim)."""
+    """The sphere kernel against its plain version, and its merged entry
+    (sphere_merge, on hits of each kind) against sphere_merge_plain;
+    returns (max |t| error, prim)."""
     t_k, p_k = ks.sphere_pass(o, d, center, radius, T_MIN, caps)
     t_p, p_p = ks.sphere_pass_plain(o, d, center, radius, T_MIN, caps)
+    idx = torch.arange(o.shape[0], device=o.device, dtype=torch.int32)
+    merged = ks.sphere_merge(o, d, center, radius, T_MIN, caps, idx % 3, idx * 7)
+    ref = ks.sphere_merge_plain(o, d, center, radius, T_MIN, caps, idx % 3, idx * 7)
     torch.cuda.synchronize()
     err = (t_k - t_p).abs().max().item()
+    same = all(torch.equal(x, y) for x, y in zip(merged, ref))
     log(f"[sphere] {label}: {o.shape[0]} rays, {center.shape[0]} spheres, hit "
         f"{float((t_k < T_MAX).float().mean()):.4f}, max|dt| {err:.3g}, "
-        f"prim mismatches {int((p_k != p_p).sum())}")
+        f"prim mismatches {int((p_k != p_p).sum())}; merged entry identical {same}")
     assert torch.equal(p_k, p_p), label
-    assert torch.allclose(t_k, t_p, rtol=TOL, atol=TOL), (label, err)
+    assert torch.equal(t_k, t_p), (label, err)
+    assert same, label
     return err, p_k
 
 
-def phase_sphere_parity(dev, size: int = 256, n_random: int = SUBSET) -> float:
+def phase_sphere_parity(dev, size: int = 256, n_random: int = SUBSET, big: int = 1 << 20):
     """The kernel against its plain version on Cornell's primary rays and
     random rays, with 8, 64 and twice 8 spheres, caps of T_MAX, finite
-    values and 0 in turn."""
+    values and 0 in turn. Returns the max |t| error and the 8-sphere case
+    (o, d, caps, center, radius) repeated to `big` rays, for row 8's
+    times."""
     scene = build_scene(get_config("fit")).to(dev)
     o_cam, d_cam = primary_rays(scene, size, dev)
     rng = np.random.default_rng(2025)
@@ -592,7 +625,9 @@ def phase_sphere_parity(dev, size: int = 256, n_random: int = SUBSET) -> float:
         e, prim = check_sphere(o, d, c, r, caps, label)
         err = max(err, e)
     assert (prim < 8).all()  # of tied minima, the first wins
-    return err
+    reps = -(-big // m)
+    tile = lambda x: x.repeat((reps,) + (1,) * (x.dim() - 1))[:big].contiguous()  # noqa: E731
+    return err, (tile(o), tile(d), tile(caps), c8, r8)
 
 
 def phase_cornell(dev) -> None:
@@ -613,8 +648,8 @@ def phase_cornell(dev) -> None:
         f"max |diff| {np.abs(img - gold).max():.3g}, launches {counts}")
     assert share > 0.999, share
     # One closest-hit pass, then one occlusion pass per light.
-    assert counts == only(wide_closest=1, wide_anyhit=scene.n_lights,
-                          sphere_pass=1 + scene.n_lights), counts
+    assert counts == only(wide_closest=1, wide_anyhit=scene.n_lights, sphere_merge=1,
+                          sphere_pass=scene.n_lights), counts
     o, d = primary_rays(scene, 64, dev, jitter=False)
     hw = backend.intersect(o, d, scene)
     hb = kapi.make_backend("brute", scene).intersect(o, d, scene)
@@ -658,10 +693,12 @@ def albedo_fd_probe(scene, cfg, backend, target, g_albedo, label) -> float:
 GRAD_RTOL, GRAD_ATOL_SHARE = 1e-3, 1e-3
 
 
-def phase_config3(dev, steps: int = 10, size: int | None = None):
+def phase_config3(dev, big, steps: int = 10, size: int | None = None):
     """Config 3 (Cornell 256x256, backend 'pallas'): render_grad and fit on
-    the card through the wide walks and the sphere kernel. Returns the
-    sphere kernel's row of the kernels line."""
+    the card through the wide walks and the sphere kernel (sphere_merge in
+    each closest hit, sphere_pass in each occlusion test). Returns the
+    sphere kernel's rows of the kernels line (sphere_rows; `big` is phase
+    2's case repeated to size)."""
     cfg = get_config("fit").override(backend="pallas", width=size, height=size)
     scene = build_scene(cfg).to(dev)
     backend = kapi.make_backend(cfg.backend, scene)
@@ -682,7 +719,7 @@ def phase_config3(dev, steps: int = 10, size: int | None = None):
     renders = 1 + steps
     log(f"[config3] {cfg.width}x{cfg.height}, launches {counts} over {renders} renders")
     assert counts == only(wide_closest=renders, wide_anyhit=renders,
-                          sphere_pass=2 * renders), counts
+                          sphere_merge=renders, sphere_pass=renders), counts
     log(f"[config3] fit losses {[round(h, 6) for h in hist]}")
     assert np.isfinite(hist).all() and hist[-1] < hist[0], hist
 
@@ -704,56 +741,127 @@ def phase_config3(dev, steps: int = 10, size: int | None = None):
     log(f"[config3] fit step ms (3 runs of {steps} steps): {[round(t, 3) for t in step_ms]}, "
         f"mean {sum(step_ms) / 3:.3f}")
 
-    # The kernel on the path's own inputs: every recorded call against the
-    # plain version, then the first (closest hit) timed.
-    err = 0.0
-    for o, d, c, r, t_min, t_max, (t_k, p_k) in rec.calls["sphere_pass"]:
-        t_p, p_p = ks.sphere_pass_plain(o, d, c, r, t_min, t_max)
-        assert torch.equal(p_k, p_p)
-        assert torch.allclose(t_k, t_p, rtol=TOL, atol=TOL)
-        err = max(err, (t_k - t_p).abs().max().item())
-    o, d, c, r, t_min, t_max, _ = rec.calls["sphere_pass"][0]
-    call_ms = events_ms(lambda: ks.sphere_pass(o, d, c, r, t_min, t_max), 100)
-    ms = kernel_device_ms(lambda: ks.sphere_pass(o, d, c, r, t_min, t_max), 100,
-                          "sphere_pass_kernel")
-    log(f"[config3] sphere_pass: {call_ms:.5f} ms a wrapper call (CUDA events over 100 "
-        f"calls, the host's launch overhead included), kernel {ms} ms a launch on the "
-        f"device (torch.profiler)")
-    if ms is None:
-        ms = call_ms
-    plain_ms = events_ms(lambda: ks.sphere_pass_plain(o, d, c, r, t_min, t_max), 5)
-    n, s = o.shape[0], c.shape[0]
-    nbytes = n * (12 + 12 + 4 + 4 + 4) + s * 16
-    ops = n * s * OPS_SPHERE
-    ops_ms, bytes_ms = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
-    log(f"[bound] sphere_pass: {n} rays x {s} spheres, {ops} FP32 ops -> {ops_ms:.5f} ms, "
-        f"{nbytes} bytes -> {bytes_ms:.5f} ms; kernel {ms:.5f} ms, plain {plain_ms:.4f} ms, "
-        f"{max(ops_ms, bytes_ms) / ms:.4f} of the bound; {len(rec.calls['sphere_pass'])} "
-        f"recorded calls identical in prim, max|dt| {err:.3g}")
-    return {
-        "name": "sphere_pass", "route": "cuda", "source": SPHERE_SOURCE,
-        "replaces": SPHERE_REPLACES, "launches": counts["sphere_pass"],
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": None,
+    # The kernels on the path's own inputs: every recorded call against the
+    # plain version, bit for bit.
+    errs = {}
+    for name, plain in (("sphere_pass", ks.sphere_pass_plain),
+                        ("sphere_merge", ks.sphere_merge_plain)):
+        errs[name] = 0.0
+        for o, d, c, r, t_min, t_in, out in rec.calls[name]:
+            ref = plain(o, d, c, r, t_min, *(t_in if name == "sphere_merge" else (t_in,)))
+            assert all(torch.equal(x, y) for x, y in zip(out, ref)), name
+            errs[name] = max(errs[name], max_abs_err(out[0], ref[0]))
+    log(f"[config3] {len(rec.calls['sphere_pass'])} sphere_pass and "
+        f"{len(rec.calls['sphere_merge'])} sphere_merge calls identical to the plain versions")
+    return sphere_rows(rec, counts, errs, big)
+
+
+#: The sphere pass on its first design (this script's run on an H100 80GB
+#: HBM3 at 700 W, PERF.md §6, row 8): the kernel's device time a launch and
+#: the wrapper call at config 3's 65,536 rays, when the wrapper built an
+#: (S, 4) table with torch.cat and kernels/api.py merged the hit in five
+#: more launches. For the log only.
+FIRST_SPHERE_MS = {"kernel": 0.002843, "wrapper": 0.04293}
+
+
+def sphere_rows(rec, counts, errs, big) -> list:
+    """Row 8's measurements, on the first recorded call of each entry
+    (config 3's 65,536 rays) and on `big`, phase 2's rays repeated to
+    1,048,576: (i) the kernels' device time a launch; (ii) the empty
+    build's (the same grid, no work: the floor); (iii) the wrapper calls'
+    times by CUDA events, and the device time of the launches the caller
+    made around the kernel before the merge moved into it (the compare and
+    three selects of a closest hit; the table's torch.cat). Returns the
+    rows of sphere_pass and sphere_merge."""
+    o, d, c, r, t_min, (t, kind, prim), _ = rec.calls["sphere_merge"][0]
+    so, sd, sc, sr, s_tmin, tf, _ = rec.calls["sphere_pass"][0]
+    empty = ks._lib(ks.EMPTY_DEFINES)
+    bo, bd, bcaps, bc, br = big
+    calls = {
+        "sphere_merge": (lambda: ks.sphere_merge(o, d, c, r, t_min, t, kind, prim),
+                         lambda: ks.sphere_merge_plain(o, d, c, r, t_min, t, kind, prim)),
+        "sphere_pass": (lambda: ks.sphere_pass(so, sd, sc, sr, s_tmin, tf),
+                        lambda: ks.sphere_pass_plain(so, sd, sc, sr, s_tmin, tf)),
     }
+    s_t, s_prim = ks.sphere_pass(o, d, c, r, t_min, t)
+
+    def caller_merge():  # the merge as separate launches after the pass
+        return ks.merge_hit(s_t, s_prim, t, kind, prim)
+
+    chains = {
+        "the caller's merge (a compare, three selects)": caller_merge,
+        "the table's torch.cat": lambda: torch.cat([c, r[:, None]], dim=1).contiguous(),
+        "sphere_pass and the caller's merge": lambda: (ks.sphere_pass(o, d, c, r, t_min, t),
+                                                       caller_merge()),
+    }
+    for label, fn in chains.items():
+        ms, k = device_time(fn, 100)
+        log(f"[config3] {label}: {k:g} launches, {ms:.6f} ms of device time a call, "
+            f"{events_ms(fn, 100):.5f} ms a call by CUDA events")
+    floor = {}
+    for label, args in (("config 3's", (o, d, c, r, t_min, t)),
+                        ("phase 2's rays repeated to", (bo, bd, bc, br, T_MIN, bcaps))):
+        n = args[0].shape[0]
+        got, ref = ks.sphere_pass(*args), ks.sphere_pass_plain(*args)
+        assert all(torch.equal(x, y) for x, y in zip(got, ref)), label
+        ms, _ = device_time(lambda: ks._kernel(*args), 100, "sphere_pass_kernel")
+        floor[n], _ = device_time(lambda: ks._kernel(*args, lib=empty), 100,
+                                  "sphere_pass_kernel")
+        assert ms > 0 and floor[n] > 0, "the profiler saw no sphere_pass_kernel"
+        bytes_ms = (n * 36 + c.shape[0] * 16) / PEAK_BYTES * 1e3
+        log(f"[config3] sphere_pass_kernel at {label} {n} rays: {ms:.6f} ms a launch on the "
+            f"device (bytes bound {bytes_ms:.6f} ms), identical to the plain version; the "
+            f"empty kernel on the same grid ({-(-n // 256)} blocks of 256): {floor[n]:.6f} ms")
+    rows = []
+    for name, (call, plain) in calls.items():
+        merge = name == "sphere_merge"
+        n, s = (o if merge else so).shape[0], c.shape[0]
+        call_ms = events_ms(call, 100)
+        ms, _ = device_time(call, 100, "sphere_pass_kernel")
+        assert ms > 0, f"the profiler saw no launch of {name}"
+        plain_ms = events_ms(plain, 5)
+        facts = ks.kernel_attributes(merge)
+        [spill] = [v for k, v in _build.ptxas_spills(_build.log_path("sphere_pass").read_text())
+                   .items() if f"18sphere_pass_kernelILb{int(merge)}E" in k]
+        nbytes = n * (48 if merge else 36) + s * 16
+        ops = n * s * OPS_SPHERE
+        ops_ms, bytes_ms = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+        log(f"[config3] {name}: {call_ms:.5f} ms a wrapper call (CUDA events over 100 calls, "
+            f"the host's launch overhead included; the first design's sphere_pass "
+            f"{FIRST_SPHERE_MS['wrapper']} ms), kernel {ms:.6f} ms a launch on the device "
+            f"(torch.profiler; the first design's {FIRST_SPHERE_MS['kernel']} ms), "
+            f"{ms - floor[n]:.6f} ms over the empty kernel; {facts}, spills {spill} bytes")
+        log(f"[bound] {name}: {n} rays x {s} spheres, {ops} FP32 ops -> {ops_ms:.5f} ms, "
+            f"{nbytes} bytes -> {bytes_ms:.5f} ms; kernel {ms:.6f} ms, plain {plain_ms:.4f} ms, "
+            f"{max(ops_ms, bytes_ms) / ms:.4f} of the bound")
+        rows.append({
+            "name": name, "route": "cuda", "source": SPHERE_SOURCE,
+            "replaces": SPHERE_REPLACES, "launches": counts[name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None, "registers": facts["registers"], "spill_bytes": spill,
+            "local_bytes": facts["local_bytes"], "warps_per_sm": facts["warps_per_sm"],
+        })
+    return rows
 
 
-def kernel_device_ms(fn, reps: int, name: str):
-    """Device milliseconds per launch of the kernels whose name holds
-    `name`, over `reps` calls of fn (torch.profiler); None if the profiler
-    saw none."""
+def device_time(fn, reps: int, name: str = ""):
+    """(device milliseconds, launches) a call of fn, over `reps` calls
+    (torch.profiler), of the kernels whose name holds `name` (all kernels
+    by default)."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
+    fn()
+    torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     evs = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
-    count = sum(e.count for e in evs)
-    return sum(e.device_time_total for e in evs) / 1e3 / count if count else None
+    return (sum(e.device_time_total for e in evs) / 1e3 / reps,
+            sum(e.count for e in evs) / reps)
 
 
 def timed_in_turns(fns, reps: int = 5) -> list:
@@ -865,7 +973,10 @@ def path_bounces(rec, chunks, depth: int, stride: int, tag: str, time_reps: int 
     every live ray; the live share, pops and tests a live ray, the time of
     the wrapper re-run on the call's full inputs (CUDA events, `time_reps`
     calls) and the bound (PERF.md §6's counting, over the live rays' pops,
-    tests, seen marks and o and d). Returns {name: {"err", "ms",
+    tests, seen marks and o and d). Beside each, the skip walk on the same
+    inputs (group's walk without leaf tests): its time, skip/group, and the
+    counting builds' pops of both on every lane (group's held ray for ray
+    to the plain walk's on the live rays). Returns {name: {"err", "ms",
     "bound_ms"}} summed over the bounces."""
     out = {n: {"err": 0.0, "ms": 0.0, "bound_ms": 0.0} for n in ("wide_closest", "wide_anyhit")}
     assert len(rec.calls["wide_closest"]) == depth and len(rec.calls["wide_anyhit"]) == depth
@@ -889,6 +1000,14 @@ def path_bounces(rec, chunks, depth: int, stride: int, tag: str, time_reps: int 
                 f"{pl:.3f} pops and {tl:.3f} tests a live ray (plain walk on all {n_live} "
                 f"live rays), {ms:.4f} ms, bound {bound:.5f} ms ({by}), {bound / ms:.4f} of it, "
                 f"{ms / max(n_live, 1) * 1e6:.3f} ns a live ray")
+            skip_ms = events_ms(lambda: walk(any_hit, (o, d, tf), chunks, "skip"), time_reps)
+            _, g_pops, _ = tw.walk_counts(any_hit, o, d, chunks, tf, leaf_mode="group")
+            _, s_pops, _ = tw.walk_counts(any_hit, o, d, chunks, tf, leaf_mode="skip")
+            assert torch.equal(g_pops[tf > 0], pops), (tag, b, name)
+            log(f"[{tag}] bounce {b} {name}: skip {skip_ms:.4f} ms against group's "
+                f"{ms:.4f} ms on the same {n} rays (one design): skip/group "
+                f"{skip_ms / ms:.3f}, 1 - skip/group {1 - skip_ms / ms:.3f}; skip pops "
+                f"{int(s_pops.sum()) / int(g_pops.sum()):.3f}x group's nodes (counting builds)")
             out[name]["err"] = max(out[name]["err"], err)
             out[name]["ms"] += ms
             out[name]["bound_ms"] += bound
@@ -1064,8 +1183,9 @@ def phase_leafmode(scene, backend, cfg, dev, size: int = WIDTH):
     wrapper (the counts), row and stream against group bit for bit, skip
     missing everything, group against the production walk; each output
     against its plain version, bit for bit, with the counts and seen marks
-    for its bound; the counting build ray for ray (group, row, stream); the
-    times, registers, spills and warps. Then three frames through render()
+    for its bound; the counting build ray for ray (every schedule); the
+    times, registers, spills and warps, and each schedule's time against
+    group's on one design. Then three frames through render()
     under BLINK_LEAF_MODE=group|row|stream on layout (a): each frame's
     closest- and any-hit calls against the plain versions bit for bit, the
     images alike. Returns the rows of the new variants."""
@@ -1076,7 +1196,7 @@ def phase_leafmode(scene, backend, cfg, dev, size: int = WIDTH):
     b_prod = tw.traverse_anyhit_wide(so, sd, backend.chunks, stf)
     rays = {False: (o, d, None), True: (so, sd, stf)}
     n = o.shape[0]
-    rows, layouts, times = [], {}, {}
+    rows, layouts, times, pops_a_ray = [], {}, {}, {}
     for lay, (n_chunks, kw, modes, report) in LEAFMODE_LAYOUTS.items():
         t0 = time.perf_counter()
         host = tw.build_chunked_wide(scene.triangles, **kw(cam))
@@ -1121,12 +1241,13 @@ def phase_leafmode(scene, backend, cfg, dev, size: int = WIDTH):
                 hits = 0 if a else int((out[(a, mo)][1] >= 0).sum())
                 bound, by = wide_bound(name, chunks, mo, seen, pops, tests, n,
                                        rays[a][2] is not None, hits)
-                if mo != "skip":
-                    check_wide_counts(a, rays[a], chunks, mo, out[(a, mo)], pops, tests,
-                                      label)
+                pops_a_ray[(lay, name)] = pops.double().mean().item()
+                check_wide_counts(a, rays[a], chunks, mo, out[(a, mo)], pops, tests, label)
                 facts = wide_kernel_facts(a, mo, quant)
+                before = (f" (the first design: {FIRST_SKIP_MS[lay][a]} ms)"
+                          if mo == "skip" else "")
                 log(f"[leafmode] {name} ({lay}): {ms:.4f} ms at {n} rays over {n_chunks} "
-                    f"chunks, {bound / ms:.4f} of the bound; {facts}")
+                    f"chunks{before}, {bound / ms:.4f} of the bound; {facts}")
                 if not report or (mo, quant) == ("group", True):
                     continue  # (c) is a measurement; group+quantized is rows 1-2
                 rows.append({
@@ -1136,17 +1257,21 @@ def phase_leafmode(scene, backend, cfg, dev, size: int = WIDTH):
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                     "bound_by": by, "library_ms": None, **facts,
                 })
-    for lay in ("a", "b"):
+    for lay in ("a", "b", "c"):
         quant = layouts[lay][0].quant
 
-        def ratio(a, mo):
-            return times[(lay, tw.launch_name(a, mo, quant))] / times[
+        def ratio(table, a, mo):
+            return table[(lay, tw.launch_name(a, mo, quant))] / table[
                 (lay, tw.launch_name(a, "group", quant))]
 
-        for mo in ("row", "stream", "skip"):
-            what = "the unchanged control" if mo == "skip" else "one design"
-            log(f"[leafmode] ({lay}) {mo} against group ({what}): closest "
-                f"{ratio(False, mo):.3f}, any hit {ratio(True, mo):.3f}")
+        for mo in LEAFMODE_LAYOUTS[lay][2][1:]:
+            log(f"[leafmode] ({lay}) {mo} against group (one design): closest "
+                f"{ratio(times, False, mo):.3f}, any hit {ratio(times, True, mo):.3f}")
+        log(f"[leafmode] ({lay}) the leaf tests' share of a group walk, 1 - skip/group: "
+            f"closest {1 - ratio(times, False, 'skip'):.3f}, any hit "
+            f"{1 - ratio(times, True, 'skip'):.3f}; skip pops {ratio(pops_a_ray, False, 'skip'):.3f}x "
+            f"and {ratio(pops_a_ray, True, 'skip'):.3f}x group's nodes, so at equal cost a pop "
+            f"this is a lower bound")
     log("[leafmode] (a) group against PR 5's kernel (PERF.md): " + ", ".join(
         f"{base} {times[('a', tw.launch_name(a, 'group', True))]:.4f} against "
         f"{PR5_MS[base][1]} ms, {PR5_MS[base][1] / times[('a', tw.launch_name(a, 'group', True))]:.3f}x"
@@ -1695,10 +1820,12 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
 
     phase_build()
-    sphere_err = phase_sphere_parity(dev)
+    sphere_err, big = phase_sphere_parity(dev)
     phase_cornell(dev)
-    sphere_row = phase_config3(dev)
-    sphere_row["max_abs_err"] = max(sphere_row["max_abs_err"], sphere_err)
+    sphere_rows = phase_config3(dev, big)
+    del big
+    for row in sphere_rows:
+        row["max_abs_err"] = max(row["max_abs_err"], sphere_err)
 
     cfg = get_config("sponza").override(width=WIDTH, height=HEIGHT, spp=1,
                                         integrator="direct")
@@ -1723,7 +1850,7 @@ def main() -> int:
         row.update(config4_launches=c4["launches"], config4_ms=c4["ms"],
                    config4_bound_ms=c4["bound_ms"])
     phase_config5(scene, backend, dev)
-    rows.append(sphere_row)
+    rows += sphere_rows
     leafmode_rows = phase_leafmode(scene, backend, cfg, dev)
 
     binary_rows = phase_binary(scene, backend, dev)

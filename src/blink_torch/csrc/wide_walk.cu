@@ -22,7 +22,10 @@
 //     superset of group's nodes and finds group's hits;
 //   - leaf_mode='skip': the walk without leaf tests, for timing only (every
 //     ray misses): its time against group's splits a walk into node walk
-//     and leaf tests.
+//     and leaf tests. Its best t stays what the ray came in with, so a skip
+//     ray pops every node whose box its [t_min, t_far] segment passes: for
+//     a closest hit a superset of group's pops, and skip's share of group's
+//     time is an upper bound on the node walk's share.
 // The TPU kernel walks a 4096-ray packet with one scalar cursor, because
 // the TPU has no per-lane gathers, and gates leaf tests by row groups or
 // 128-ray rows; here each ray walks with its own stack, takes its child
@@ -49,9 +52,9 @@
 // What bounds it on the H100. Not the arithmetic: a ray's slab and
 // triangle tests are a few thousand lane-instructions, a small share of the
 // SM cycles a walk takes. A walk waits on chains of dependent loads and on
-// lanes that diverge. In the first design (wide_walk below, now the skip
-// schedule's alone), a pop reads the stack, then the octant order, and only
-// then each child record; a leaf test loads its record only after the
+// lanes that diverge. In the first design (one thread a ray, as now), a
+// pop reads the stack, then the octant order, and only then each child
+// record; a leaf test loads its record only after the
 // previous test's compare and branch; and a warp runs the leaf loops of its
 // lanes' eight near-first positions one after another, so a lane with a
 // 44-triangle leaf makes 44 serial L2 round trips while the rest of its
@@ -60,10 +63,10 @@
 // of shared memory a block may use, and a 1M-triangle scene's tables fit
 // the 50 MB L2 or nearly.
 //
-// group, row and stream are redesigned around that, as one template
-// (wide_group_walk<ANY_HIT, QUANT, MODE>: MODE picks the record table and
-// stream's deferral); skip keeps the design above (wide_walk) until its own
-// redesign. The steps, each timed against the earlier build in one process
+// Every schedule is redesigned around that, as one template
+// (wide_group_walk<ANY_HIT, QUANT, MODE>: MODE picks the record table,
+// stream's deferral, or skip's lack of leaf tests). The steps, each timed
+// against the earlier build in one process
 // by wide_walk_ab.py at 1,048,576 rays on Sponza 1M, H100 80GB HBM3 at
 // 700 W (PERF.md §6), first for group:
 //   1. a pop issues all its loads together (the octant order, the node's
@@ -114,6 +117,13 @@
 //      112-116 bytes in stream's f32 kernels and moved times by -1.3% to
 //      +1.1%; dropped: stream's f32 kernels keep 130-134 registers and 12
 //      warps an SM, the others 126-128 and 16.
+// Then skip on group's walk:
+//   9. group's pop with no leaf loop: 43-48 registers and 40 warps an SM,
+//      as the first design had; 1.018x / 0.999x the first design's time
+//      on layout (a) (closest / any hit), 1.058x / 1.050x on (b). At 40
+//      warps an SM the first design's dependent loads were already
+//      hidden; what group's pop buys at 16 warps it cannot buy here. Kept,
+//      so that skip against group compares schedules on one design.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -181,78 +191,6 @@ __device__ __forceinline__ float tri_t_rec(float ox, float oy, float oz,
 }
 
 enum LeafMode { kGroup = 0, kRow = 1, kStream = 2, kSkip = 3 };  // LEAF_MODES
-
-// The skip schedule, on the first design: the walk without leaf tests
-// (every ray misses). Closest hit: t/prim hold the best so far (threaded
-// across chunks); no hit changes them. Any hit: t_in is t_far; rays
-// already blocked by an earlier chunk do no work. child is int32 words
-// (QUANT) or floats; nbox is read only with QUANT.
-template <bool ANY_HIT, bool QUANT>
-__global__ void __launch_bounds__(kThreads)
-    wide_walk(const float* __restrict__ o, const float* __restrict__ d,
-              float* __restrict__ t_io, int* __restrict__ prim,
-              bool* __restrict__ blocked, const void* __restrict__ child,
-              const float* __restrict__ nbox, const int* __restrict__ perm,
-              int n, float t_min) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  if (ANY_HIT && blocked[i]) return;
-  const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
-  const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
-  const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
-  const int octant = (dx >= 0.0f ? 1 : 0) | (dy >= 0.0f ? 2 : 0) |
-                     (dz >= 0.0f ? 4 : 0);
-  const float best = ANY_HIT ? nan_min(t_io[i], kTMax) : t_io[i];
-
-  int stack[WIDE_STACK_CAP];
-  int sp = 0;
-  stack[sp++] = 0;
-  while (sp > 0) {
-    const int node = stack[--sp];
-    const int pm = __ldg(perm + node * 8 + octant);
-    int ref[8], cnt[8];
-    unsigned need = 0;
-    if constexpr (QUANT) {
-      const int* cq = static_cast<const int*>(child);
-      const float* nb = nbox + node * 8;
-      const float nox = __ldg(nb), noy = __ldg(nb + 1), noz = __ldg(nb + 2);
-      const float nsx = __ldg(nb + 3), nsy = __ldg(nb + 4), nsz = __ldg(nb + 5);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {  // near-first order of this octant
-        const int c8 = (pm >> (3 * k)) & 7;
-        const int* w = cq + (node * 8 + c8) * 3;
-        const int w0 = __ldg(w), w1 = __ldg(w + 1);
-        ref[k] = __ldg(w + 2);
-        cnt[k] = w0 >> 24;
-        const bool hit = slab(
-            ox, oy, oz, ix, iy, iz, t_min, best,
-            dequant(nox, w0 & 255, nsx), dequant(noy, (w0 >> 8) & 255, nsy),
-            dequant(noz, (w0 >> 16) & 255, nsz), dequant(nox, w1 & 255, nsx),
-            dequant(noy, (w1 >> 8) & 255, nsy),
-            dequant(noz, (w1 >> 16) & 255, nsz));
-        need |= (hit ? 1u : 0u) << k;
-      }
-    } else {
-      const float4* cf = static_cast<const float4*>(child);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int c8 = (pm >> (3 * k)) & 7;
-        const float4 a = __ldg(cf + (node * 8 + c8) * 2);  // lx ly lz hx
-        const float4 b = __ldg(cf + (node * 8 + c8) * 2 + 1);  // hy hz ref cnt
-        ref[k] = static_cast<int>(b.z);
-        cnt[k] = static_cast<int>(b.w);
-        const bool hit =
-            slab(ox, oy, oz, ix, iy, iz, t_min, best, a.x, a.y, a.z, a.w, b.x, b.y);
-        need |= (hit ? 1u : 0u) << k;
-      }
-    }
-    // Internal children, pushed far to near so the nearest pops first.
-#pragma unroll
-    for (int k = 7; k >= 0; --k) {
-      if (((need >> k) & 1u) && cnt[k] == 0 && ref[k] > 0) stack[sp++] = ref[k];
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // group, row and stream: one walk, redesigned to hide latency (the note at
@@ -351,11 +289,13 @@ __device__ __forceinline__ bool leaf_loop(
   return false;
 }
 
-// Closest hit and any hit under the group, row and stream schedules.
+// Closest hit and any hit under the group, row, stream and skip schedules.
 // Closest hit: t/prim hold the best so far (threaded across chunks) and are
 // updated where this chunk has a nearer hit. Any hit: t_in is t_far,
 // blocked is set where a hit lies in [t_min, min(t_far, T_MAX)); rays
-// already blocked by an earlier chunk do no work. child is int32 words
+// already blocked by an earlier chunk do no work. skip tests no leaf: the
+// walk prunes with the best t it came in with for its whole length (t_in,
+// or min(t_far, T_MAX)), writes nothing and blocks nothing. child is int32 words
 // (QUANT) or floats; nbox is read only with QUANT. recs is the record
 // table: tri (group; gids in tri_id) or tbat (row and stream; a leaf's
 // first batch in bref). Each ray sees what the plain walk
@@ -371,7 +311,8 @@ __device__ __forceinline__ bool leaf_loop(
 //   - the nearest internal child that passed is the next node without a
 //     trip through the stack, and the rest are pushed far to near, before
 //     the leaf tests (which cannot change them);
-//   - the leaves of a pop run as one loop over a cursor (leaf_loop);
+//   - the leaves of a pop run as one loop over a cursor (leaf_loop; skip
+//     has none);
 //   - stream: the queue is [the pending leaf, this pop's leaves but the
 //     last], and the last becomes the pending leaf, tested at the ray's
 //     next leaf-bearing pop or after the walk.
@@ -462,25 +403,29 @@ __global__ void __launch_bounds__(kThreads)
       node = sp > 0 ? stack[--sp] : -1;
     }
 
-    // The leaves that passed, near first (lf_k: by near-first position).
-    unsigned lf_k = by_order(leaf, pm);
-    int s = 0, e = 0;
-    if constexpr (MODE == kStream) {
-      // The pending leaf first, then all of this pop's leaves but the
-      // last, which becomes the pending leaf.
-      if (!lf_k) continue;
-      const int k = 31 - __clz(static_cast<int>(lf_k));
-      lf_k &= ~(1u << k);
-      const int c8 = (pm >> (3 * k)) & 7;
-      s = pend_s;
-      e = pend_s + pend_c;
-      pend_s = kBatch * __ldg(brow + c8);
-      pend_c = pick8(cnt, c8);
-    }
-    if (leaf_loop<ANY_HIT, MODE>(recs, brow, s, e, lf_k, pm, ref, cnt, ox, oy,
-                                 oz, dx, dy, dz, t_min, best, best_hit, i)) {
-      blocked[i] = true;
-      return;
+    if constexpr (MODE == kSkip) {
+      continue;  // no leaf tests: no leaf_loop, no record table read
+    } else {
+      // The leaves that passed, near first (lf_k: by near-first position).
+      unsigned lf_k = by_order(leaf, pm);
+      int s = 0, e = 0;
+      if constexpr (MODE == kStream) {
+        // The pending leaf first, then all of this pop's leaves but the
+        // last, which becomes the pending leaf.
+        if (!lf_k) continue;
+        const int k = 31 - __clz(static_cast<int>(lf_k));
+        lf_k &= ~(1u << k);
+        const int c8 = (pm >> (3 * k)) & 7;
+        s = pend_s;
+        e = pend_s + pend_c;
+        pend_s = kBatch * __ldg(brow + c8);
+        pend_c = pick8(cnt, c8);
+      }
+      if (leaf_loop<ANY_HIT, MODE>(recs, brow, s, e, lf_k, pm, ref, cnt, ox, oy,
+                                   oz, dx, dy, dz, t_min, best, best_hit, i)) {
+        blocked[i] = true;
+        return;
+      }
     }
   }
   if constexpr (MODE == kStream) {  // the pending leaf, after the walk
@@ -492,13 +437,15 @@ __global__ void __launch_bounds__(kThreads)
       return;
     }
   }
-  if (!ANY_HIT && best_hit >= 0) {
-    t_io[i] = best;
-    if constexpr (MODE == kGroup) {
-      prim[i] = __ldg(tri_id + best_hit);
-    } else {  // the gid, float 9 of the winning tbat record
-      prim[i] = static_cast<int>(
-          __ldg(reinterpret_cast<const float*>(recs + 4 * best_hit + 2) + 1));
+  if constexpr (MODE != kSkip) {
+    if (!ANY_HIT && best_hit >= 0) {
+      t_io[i] = best;
+      if constexpr (MODE == kGroup) {
+        prim[i] = __ldg(tri_id + best_hit);
+      } else {  // the gid, float 9 of the winning tbat record
+        prim[i] = static_cast<int>(
+            __ldg(reinterpret_cast<const float*>(recs + 4 * best_hit + 2) + 1));
+      }
     }
   }
 }
@@ -529,8 +476,9 @@ int launch_mode(int mode, const float* o, const float* d, float* t_io,
           t_min);
       break;
     case kSkip:
-      wide_walk<ANY_HIT, QUANT><<<blocks, kThreads, 0, stream>>>(
-          o, d, t_io, prim, blocked, child, nbox, perm, n, t_min);
+      wide_group_walk<ANY_HIT, QUANT, kSkip><<<blocks, kThreads, 0, stream>>>(
+          o, d, t_io, prim, blocked, child, nbox, perm, tr, tri_id, bref, n,
+          t_min);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -549,7 +497,7 @@ const void* kernel_of(int mode) {
     case kStream:
       return reinterpret_cast<const void*>(&wide_group_walk<ANY_HIT, QUANT, kStream>);
     case kSkip:
-      return reinterpret_cast<const void*>(&wide_walk<ANY_HIT, QUANT>);
+      return reinterpret_cast<const void*>(&wide_group_walk<ANY_HIT, QUANT, kSkip>);
   }
   return nullptr;
 }

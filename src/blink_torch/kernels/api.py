@@ -15,8 +15,8 @@
           honours BLINK_LEAF_MODE=row|stream;
   auto  — brute at 64 triangles or fewer, else wide (`blink`'s rule).
 
-Spheres go through `sphere_pass` on bvh and wide (the sphere kernel on a
-CUDA device). Traversal is a topology oracle: every input is detached and
+Spheres go through `sphere_merge` (closest hit) and `sphere_pass`
+(occlusion) on bvh and wide (the sphere kernel on a CUDA device). Traversal is a topology oracle: every input is detached and
 no output carries a gradient; gradients come from diff.hitrefine.
 """
 from __future__ import annotations
@@ -28,7 +28,7 @@ import torch
 
 from blink_torch.bvh.build import build_flat_bvh
 from blink_torch.kernels.bruteforce import intersect_brute, occluded_brute
-from blink_torch.kernels.sphere import sphere_pass
+from blink_torch.kernels.sphere import sphere_merge, sphere_pass
 from blink_torch.kernels.traverse_packed import (
     PackedBVH,
     pack_bvh_planes,
@@ -41,7 +41,7 @@ from blink_torch.kernels.traverse_wide import (
     traverse_anyhit_wide,
     traverse_closest_wide,
 )
-from blink_torch.kernels.types import KIND_NONE, KIND_SPHERE, KIND_TRI, T_MAX, T_MIN, Hit
+from blink_torch.kernels.types import KIND_NONE, KIND_TRI, T_MAX, T_MIN, Hit
 from blink_torch.scene.scene import Scene
 from blink_torch.scene.shade import pack_tri_shade_np
 
@@ -83,13 +83,9 @@ class Backend:
                 # Dead lanes must not pick up sphere hits.
                 best_t = torch.where(alive, best_t, 0.0)
             sph = scene.spheres
-            s_t, s_prim = sphere_pass(
-                o, d, sph.center.detach(), sph.radius.detach(), T_MIN, best_t
+            best_t, kind, prim = sphere_merge(
+                o, d, sph.center.detach(), sph.radius.detach(), T_MIN, best_t, kind, prim
             )
-            s_better = s_t < best_t
-            best_t = torch.where(s_better, s_t, best_t)
-            kind = torch.where(s_better, KIND_SPHERE, kind).to(torch.int32)
-            prim = torch.where(s_better, s_prim, prim)
         if alive is not None:
             # Canonical dead-lane Hit, identical across backends.
             best_t = torch.where(alive, best_t, T_MAX)

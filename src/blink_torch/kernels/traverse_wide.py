@@ -546,12 +546,9 @@ def _lib(defines: tuple[str, ...] = ()):
 
 def kernel_symbol(any_hit: bool, mode: str, quant: bool) -> str:
     """The part of a variant's mangled kernel name (in ptxas's report) that
-    tells it from the others: wide_group_walk<any_hit, quant, mode> for
-    group, row and stream, wide_walk<any_hit, quant> for skip."""
-    a, q = int(any_hit), int(quant)
-    if mode == "skip":
-        return f"9wide_walkILb{a}ELb{q}EE"
-    return f"15wide_group_walkILb{a}ELb{q}ELi{LEAF_MODES.index(mode)}EE"
+    tells it from the others: wide_group_walk<any_hit, quant, mode>."""
+    return (f"15wide_group_walkILb{int(any_hit)}ELb{int(quant)}"
+            f"ELi{LEAF_MODES.index(mode)}EE")
 
 
 def kernel_attributes(any_hit: bool, leaf_mode: str, quant: bool, lib=None) -> dict:
@@ -673,8 +670,8 @@ def walk_counts(any_hit: bool, o, d, chunks, t_far=None, t_min: float = T_MIN,
     output is traverse_closest_wide's (t, prim) or traverse_anyhit_wide's
     blocked flags; pops and tests (N,) int64 are each ray's node pops and
     triangle tests summed over the chunks, as closest_wide_plain /
-    anyhit_wide_plain(..., counts=True) count them (group, row and stream;
-    the skip walk counts nothing)."""
+    anyhit_wide_plain(..., counts=True) count them (skip: pops only, no
+    tests)."""
     _check_chunks(chunks)
     mode = _resolve_leaf_mode(chunks, leaf_mode, any_hit)
     lib = lib or _lib(COUNTS_DEFINES)

@@ -1,6 +1,7 @@
-"""The wide walk's row and stream leaf schedules at their edges, and the
-names of the kernels that run them (csrc/wide_walk.cu::wide_group_walk
-with MODE row or stream: group's walk reading the batch table tbat).
+"""The wide walk's row, stream and skip leaf schedules at their edges, and
+the names of the kernels that run them (csrc/wide_walk.cu::wide_group_walk
+with MODE row or stream: group's walk reading the batch table tbat; skip:
+group's walk without leaf tests).
 
 On the CPU: the plain row and stream walks (what the kernels are held to
 on the card) against blink's flat-BVH walks, quantized and f32 boxes, on
@@ -9,10 +10,12 @@ six 8-record batches, an exactly coincident pair, exact zero direction
 components, t_far = 0 lanes, and rays whose only hit lies in the leaf
 still pending when the stream walk ends; plain row's pops and tests equal
 plain group's ray for ray, and plain stream pops at least group's nodes;
-ptxas's report of the new kernels' names, as chip_smoke.py reads it
-(traverse_wide.kernel_symbol). On
-the card (gpu marker): every row and stream kernel and the counting build
-against the plain walks at 1, 31, 33, 97 and 333 rays.
+plain skip tests nothing, changes no hit, pops at least group's nodes and
+exactly group's on the rays group finds no hit for; ptxas's report of all
+16 wide kernels' names, as chip_smoke.py reads it
+(traverse_wide.kernel_symbol). On the card (gpu marker): every row, stream
+and skip kernel and the counting build against the plain walks at 1, 31,
+33, 97 and 333 rays.
 """
 import dataclasses
 import functools
@@ -27,6 +30,7 @@ from blink.kernels.traverse import traverse_anyhit, traverse_closest
 from blink.scene.scene import Triangles
 from blink_torch.kernels import _build
 from blink_torch.kernels import traverse_wide as tw
+from blink_torch.kernels.types import T_MAX
 from test_bvh import _random_rays, _random_tris
 from test_torch_build import port_tris
 from test_torch_group_walk import CHUNK, N_RAYS, N_TRIS, WIDE_LEAF, leaf_spans, ptxas_entry
@@ -189,13 +193,38 @@ def test_row_counts_equal_group_and_stream_pops_a_superset(quant):
     assert (counts["stream"][0] >= counts["group"][0]).all()
 
 
+@pytest.mark.parametrize("quant", [True, False], ids=["quant", "f32"])
+def test_skip_walks_group_nodes_without_leaf_tests(quant):
+    """Plain skip, closest and any hit: no triangle test, t and prim as the
+    ray came in (min(t_far, T_MAX), -1) and nothing blocked; its best t
+    never falls, so it pops at least group's nodes on every ray, exactly
+    group's where group finds no hit, and somewhere more."""
+    _, host, o, d, t_far = edge_case(quant)
+    chunks = [tw.WideChunk.from_host(c, "cpu") for c in host]
+    ot, dt, tf = torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(t_far)
+    for far in (None, tf):
+        t, prim, pops, tests = tw.closest_wide_plain(ot, dt, chunks, far, counts=True,
+                                                     leaf_mode="skip")
+        _, g_prim, g_pops, _ = tw.closest_wide_plain(ot, dt, chunks, far, counts=True,
+                                                     leaf_mode="group")
+        t_in = torch.full_like(t, T_MAX) if far is None else torch.clamp(far, max=T_MAX)
+        assert torch.equal(t, t_in) and (prim == -1).all() and not tests.any()
+        miss = g_prim < 0
+        assert 0 < miss.sum() < len(miss)
+        assert (pops >= g_pops).all() and torch.equal(pops[miss], g_pops[miss])
+        assert (pops > g_pops).any()
+    blocked, pops, tests = tw.anyhit_wide_plain(ot, dt, chunks, tf, counts=True,
+                                                leaf_mode="skip")
+    g_blocked, g_pops, _ = tw.anyhit_wide_plain(ot, dt, chunks, tf, counts=True,
+                                                leaf_mode="group")
+    assert not blocked.any() and not tests.any() and g_blocked.any()
+    assert (pops >= g_pops).all() and torch.equal(pops[~g_blocked], g_pops[~g_blocked])
+
+
 #: nvcc's mangled names of the wide kernels: wide_group_walk<any_hit,
-#: quant, mode> for group (0), row (1) and stream (2), wide_walk<any_hit,
-#: quant> for skip.
+#: quant, mode> for group (0), row (1), stream (2) and skip (3).
 GROUP_WALK = "_ZN12_GLOBAL__N_115wide_group_walkILb{}ELb{}ELi{}EEEvPKfS2_PfPiPbPKvS2_PKiPK6float4S9_S9_if"
-SKIP_WALK = "_ZN12_GLOBAL__N_19wide_walkILb{}ELb{}EEEvPKfS2_PfPiPbPKvS2_PKiif"
-NAMES = {(a, mo, q): (SKIP_WALK.format(a, q) if mo == "skip"
-                      else GROUP_WALK.format(a, q, tw.LEAF_MODES.index(mo)))
+NAMES = {(a, mo, q): GROUP_WALK.format(a, q, tw.LEAF_MODES.index(mo))
          for a in (0, 1) for q in (0, 1) for mo in tw.LEAF_MODES}
 
 
@@ -212,7 +241,7 @@ def test_ptxas_report_of_the_wide_kernels():
 
 @pytest.mark.gpu
 def test_row_stream_kernels_and_counting_build_match_plain_on_gpu():
-    """wide_group_walk's row and stream variants, closest and any hit,
+    """wide_group_walk's row, stream and skip variants, closest and any hit,
     quantized and f32 boxes, against the plain walks bit for bit at 1, 31,
     33, 97 and 333 rays of the edge case (with and without t_far for
     closest hit) and on the late-hit rays; the counting build's output,
@@ -223,7 +252,7 @@ def test_row_stream_kernels_and_counting_build_match_plain_on_gpu():
         for case, sizes in ((edge_case, (1, 31, 33, 97, N_RAYS)), (late_hit_case, (N_LATE,))):
             _, host, o, d, t_far = case(quant)
             chunks = [tw.WideChunk.from_host(c, "cuda") for c in host]
-            for n, mode in ((n, mo) for n in sizes for mo in ("row", "stream")):
+            for n, mode in ((n, mo) for n in sizes for mo in ("row", "stream", "skip")):
                 ot, dt = torch.from_numpy(o[-n:]).cuda(), torch.from_numpy(d[-n:]).cuda()
                 tf = torch.from_numpy(t_far[-n:]).cuda()
                 for far in (None, tf):

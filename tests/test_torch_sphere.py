@@ -177,14 +177,15 @@ def test_traversal_severs_autograd(monkeypatch):
             return out
         return wrapped
 
-    for name in ("traverse_closest_wide", "traverse_anyhit_wide", "sphere_pass"):
+    passes = ("traverse_closest_wide", "traverse_anyhit_wide", "sphere_merge", "sphere_pass")
+    for name in passes:
         monkeypatch.setattr(kapi, name, spy(getattr(kapi, name), name))
     cfg = get_config("cornell").override(width=16, height=16, deterministic=True,
                                          backend="wide")
     loss, g = render_grad(builders.cornell_box(), cfg, torch.zeros(16, 16, 3),
                           ("cam_origin",), device="cpu")
     names = {n for n, _ in seen}
-    assert names == {"traverse_closest_wide", "traverse_anyhit_wide", "sphere_pass"}
+    assert names == set(passes)
     assert not any(any(flags) for _, flags in seen)
     assert torch.isfinite(g["cam_origin"]).all() and g["cam_origin"].abs().max() > 0
 
@@ -197,7 +198,10 @@ def test_traversal_severs_autograd(monkeypatch):
 @pytest.mark.gpu
 def test_sphere_kernel_matches_plain_on_gpu():
     """The CUDA kernel against its plain version on the card: prim
-    identical, t within 1e-6, one launch per call."""
+    identical, t within 1e-6, one launch per call; the merged entry
+    (sphere_merge) against sphere_merge_plain bit for bit, on hits of
+    every kind. center and radius are read in place: views that are not
+    contiguous raise, and their contiguous copies give the same result."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     for n_spheres, dup in ((8, False), (64, False), (8, True)):
@@ -209,6 +213,22 @@ def test_sphere_kernel_matches_plain_on_gpu():
         t_p, prim_p = ks.sphere_pass_plain(o, d, center, radius, T_MIN, caps)
         assert torch.equal(prim, prim_p)
         torch.testing.assert_close(t, t_p, **TOL)
+        kind = torch.arange(N_RAYS, device="cuda", dtype=torch.int32) % 3
+        tri = torch.arange(N_RAYS, device="cuda", dtype=torch.int32) * 7
+        before = ks.LAUNCHES["sphere_merge"]
+        got = ks.sphere_merge(o, d, center, radius, T_MIN, caps, kind, tri)
+        assert ks.LAUNCHES["sphere_merge"] == before + 1
+        want = ks.sphere_merge_plain(o, d, center, radius, T_MIN, caps, kind, tri)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert (got[1] == KIND_SPHERE).any() and (got[1] != KIND_SPHERE).any()
+    wide_c = torch.stack([center, center], 2)[:, :, 0]  # strided views
+    wide_r = torch.stack([radius, radius], 1)[:, 0]
+    assert not wide_c.is_contiguous() and not wide_r.is_contiguous()
+    for c, r in ((wide_c, radius), (center, wide_r)):
+        with pytest.raises(ValueError, match="must be contiguous"):
+            ks.sphere_pass(o, d, c, r, T_MIN, caps)
+        t_c, prim_c = ks.sphere_pass(o, d, c.contiguous(), r.contiguous(), T_MIN, caps)
+        assert torch.equal(t_c, t) and torch.equal(prim_c, prim)
     with pytest.raises(ValueError, match="unrolls over spheres"):
         o, d, _, _, caps = args
         ks.sphere_pass(o, d, torch.zeros(65, 3, device="cuda"),

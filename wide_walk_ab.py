@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time builds of the wide walks (group, row and stream) against each other
-on one CUDA card.
+"""Time builds of the wide walks (group, row, stream and skip) against each
+other on one CUDA card.
 
     python3 wide_walk_ab.py [--other NAME=DIR ...] [--row-layouts] [--counts]
                             [--rounds R]
@@ -23,8 +23,8 @@ under the group, row, stream and skip schedules:
     local memory and resident warps an SM of every variant's kernel;
   - with --counts, the counting build of the source (-DWIDE_WALK_COUNTS,
     traverse_wide.walk_counts): each ray's node pops and triangle tests in
-    the kernel against the plain walk's counts, ray for ray, under group,
-    row and stream (the skip walk counts nothing);
+    the kernel against the plain walk's counts, ray for ray, under every
+    schedule timed;
   - the times: R rounds, in each every variant's walks (5 calls each, by
     CUDA events), in forward order in even rounds and in reverse order in
     odd ones; the mean and min over the rounds and each variant's mean
@@ -151,8 +151,6 @@ def main() -> int:
                 tw.anyhit_wide_plain(so, sd, chunks, stf, counts=True, leaf_mode=mo))
         if counting is not None:
             for (w, mo), (_, plain) in walks.items():
-                if mo == "skip":
-                    continue
                 rays = (o, d, None) if w == "closest" else (so, sd, stf)
                 out, *got = tw.walk_counts(w == "any", *rays[:2], chunks, rays[2],
                                            leaf_mode=mo, lib=counting)
