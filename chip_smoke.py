@@ -52,6 +52,22 @@ Phases (each asserts; any failure exits non-zero):
                 checked (finite, non-zero vertex gradients, the albedo
                 finite-difference probe), with peak memory and one profiled
                 step.
+  8b. bench   — the port's bench harness on the same scene and backend
+                (blink_torch.benchmarks): the headline's stages in turn —
+                the primary traversal at 1024x1024 (exactly one closest-hit
+                wide_group_walk launch a chunk a call), grad_allclose,
+                fwd+bwd, scaling at world size 1 (skip_walk only), config 4
+                and config 5's unit — with every plain walk and plain sphere
+                pass made to raise, each stage's launches asserted, the
+                headline's JSON line printed and its keys, finite positive
+                numbers and grad_allclose's pass checked; run_bench of
+                cornell and fit (quick, through pallas: sphere_merge and
+                sphere_pass launch); then the tooling on the card: a
+                checkpoint of CUDA tensors loaded back equal, fit for 4
+                steps against 2 + a resume for 2 on Cornell 64x64 (within
+                the stated tolerance; the largest difference printed),
+                refit_bvh on the card equal to the CPU's, and a trace() of
+                one fwd+bwd step (whether it names the walk kernels).
   9. config 4 — the sponza preset uncut (512x512, 16 spp, path depth 4,
                 spp_block 16, compact, rr_start 1) on the same scene and
                 backend: 4 x 3 closest and 4 x 3 any-hit launches, each
@@ -877,7 +893,7 @@ def timed_in_turns(fns, reps: int = 5) -> list:
     return out
 
 
-def phase_fwd_bwd(scene, backend, dev, size: int = WIDTH) -> None:
+def phase_fwd_bwd(scene, backend, dev, size: int = WIDTH) -> dict:
     """bench.py::_fwd_bwd on the card: pixel MSE of the 1 spp direct frame
     against a zero target, forward only, and value-and-grad of the
     materials and of materials plus vertices through render_grad."""
@@ -932,6 +948,227 @@ def phase_fwd_bwd(scene, backend, dev, size: int = WIDTH) -> None:
         "max_memory_allocated": peak, "memory_allocated_before": before,
     }))
     profile(lambda: vg(geo), "fwd+bwd geometry", mg)
+    return {"fwd_ms": mf, "materials_ms": mm, "geometry_ms": mg}
+
+
+# ------------------------------------------------------- the bench harness
+
+
+#: Calls of fn in the harness's _time_sustained (a warmup, then 3 batches of
+#: 5) and _time (a warmup, then 3), at their defaults.
+SUSTAINED_CALLS = 1 + 3 * 5
+BLOCKED_CALLS = 1 + 3
+#: The headline's result keys (bench.py's, with fwd_bwd's; bwd_guard only
+#: on a breach) and its detail's.
+HEADLINE_KEYS = {"metric", "value", "unit", "vs_baseline", "detail", "rays_per_s_fwd_bwd",
+                 "rays_per_s_fwd_frame", "bwd_over_fwd_geometry"}
+DETAIL_KEYS = {"platform", "n_triangles", "image", "wall_s", "hit_fraction", "n_chunks",
+               "roofline", "fwd_bwd", "grad_allclose", "config4", "config5_unit", "scaling"}
+#: fit on the card, 4 steps against 2 + a resume for 2: the backward's
+#: index_add_ sums in the order its atomics land, so the two runs agree to
+#: f32 rounding of the gradients, not bit for bit.
+RESUME_RTOL = 1e-5
+
+
+class forbid_plain:
+    """Make every plain walk and plain sphere pass raise: inside, a call
+    that reached one instead of its kernel fails."""
+
+    SITES = ((tw, "_walk_plain"), (tp, "_closest_plain"), (tp, "_anyhit_plain"),
+             (ks, "sphere_pass_plain"), (ks, "sphere_merge_plain"))
+
+    def __enter__(self):
+        self._orig = [getattr(m, n) for m, n in self.SITES]
+
+        def refuse(*a, **k):
+            raise AssertionError("a plain version ran where its kernel should have")
+
+        for m, n in self.SITES:
+            setattr(m, n, refuse)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n), f in zip(self.SITES, self._orig):
+            setattr(m, n, f)
+
+
+def numbers(x, path=""):
+    """(path, value) of every number in a nested dict or list."""
+    if isinstance(x, dict):
+        for k, v in x.items():
+            yield from numbers(v, f"{path}.{k}")
+    elif isinstance(x, list):
+        for i, v in enumerate(x):
+            yield from numbers(v, f"{path}[{i}]")
+    elif isinstance(x, (int, float)) and not isinstance(x, bool):
+        yield path, x
+
+
+def phase_bench(scene, backend, dev, size: int = WIDTH) -> dict:
+    """The headline (blink_torch.benchmarks.headline) stage by stage on the
+    prebuilt scene and backend, each stage's launches asserted and no plain
+    walk allowed; its JSON line printed. Then run_bench of cornell and fit
+    through pallas, and the tooling on the card. Returns the headline's
+    result."""
+    from blink_torch.benchmarks import harness
+    from blink_torch.benchmarks import headline as hl
+
+    t0 = time.perf_counter()
+    n = len(backend.chunks)
+    calls = []
+    walk = tw.traverse_closest_wide
+
+    def counted(*a, **k):
+        calls.append(1)
+        return walk(*a, **k)
+
+    tw.traverse_closest_wide = counted
+    try:
+        with forbid_plain():
+            reset_launches()
+            result = hl.headline(scene, size, backend, dev)
+            torch.cuda.synchronize()
+            counts = launches()
+    finally:
+        tw.traverse_closest_wide = walk
+    log(f"[bench] primary traversal: {len(calls)} calls, launches {counts}")
+    assert len(calls) == SUSTAINED_CALLS + BLOCKED_CALLS + 1, len(calls)
+    assert counts == only(wide_closest=len(calls) * n), counts
+    expect = {
+        "grad_allclose": only(),  # Cornell through brute: no kernel
+        "fwd_bwd": only(wide_closest=3 * SUSTAINED_CALLS * n,
+                        wide_anyhit=3 * SUSTAINED_CALLS * n),
+        # the sponza preset's path integrator, depth 4, deterministic: each
+        # bounce's closest hit, and a shadow ray to each of the 2 light
+        # triangles, through bvh's one chunk
+        "scaling": only(skip_closest=4 * BLOCKED_CALLS, skip_anyhit=2 * 4 * BLOCKED_CALLS),
+        "config4": only(wide_closest=SUSTAINED_CALLS * 4 * n,
+                        wide_anyhit=SUSTAINED_CALLS * 4 * n),
+        "config5_unit": only(wide_closest=SUSTAINED_CALLS * 4 * n,
+                             wide_anyhit=SUSTAINED_CALLS * 4 * n),
+    }
+    detail = result["detail"]
+    for name, _, fn in hl.stages(result, scene, size, backend, dev):
+        ts = time.perf_counter()
+        with forbid_plain():
+            reset_launches()
+            detail[name] = fn()
+            torch.cuda.synchronize()
+            counts = launches()
+        log(f"[bench] {name} ({time.perf_counter() - ts:.1f} s): {json.dumps(detail[name])}")
+        log(f"[bench] {name} launches {counts}")
+        assert counts == expect[name], (name, counts)
+    print(json.dumps(result), flush=True)
+    assert HEADLINE_KEYS <= set(result) and set(detail) == DETAIL_KEYS, (set(result),
+                                                                          set(detail))
+    assert result["metric"] == "primary_rays_per_sec_fwd_1mtri"
+    assert detail["grad_allclose"]["pass"], detail["grad_allclose"]
+    for path, v in numbers(result):
+        # grad_allclose's indices and gradients are an index set and signed
+        signed = path.startswith((".detail.grad_allclose.indices", ".detail.grad_allclose.grads"))
+        assert np.isfinite(v) and (signed or v > 0), (path, v)
+    log(f"[bench] headline {result['value']:.6g} rays/s ({detail['wall_s'] * 1e3:.4f} ms a "
+        f"call at {size}x{size}, {detail['n_chunks']} chunks), hit fraction "
+        f"{detail['hit_fraction']:.4f}; {detail['roofline']['pops_per_ray']:.3f} pops and "
+        f"{detail['roofline']['tests_per_ray']:.3f} tests a ray; copy bandwidth "
+        f"{detail['roofline']['hbm_gbps_measured']:.1f} GB/s; "
+        f"{detail['roofline']['fraction_of_sol']:.4f} of the per-ray bound with no cache "
+        "reuse (the kernels line's bound_ms counts distinct bytes)")
+
+    for config in ("cornell", "fit"):
+        with forbid_plain():
+            reset_launches()
+            out = harness.run_bench(config, quick=True, device=dev, backend="pallas")
+            torch.cuda.synchronize()
+            counts = launches()
+        calls = 2 * BLOCKED_CALLS  # forward, then fwd+bwd: one closest hit, one shadow ray
+        log(f"[bench] run_bench({config!r}, quick, pallas): {json.dumps(out)}")
+        log(f"[bench] run_bench({config!r}) launches {counts}")
+        assert counts == only(wide_closest=calls, wide_anyhit=calls, sphere_merge=calls,
+                              sphere_pass=calls), counts
+        # the roofline's work, counted on this config's own primary rays
+        assert out["roofline"]["pops_per_ray"] > 0 < out["roofline"]["tests_per_ray"], out
+    tooling_on_card(scene, backend, dev)
+    log(f"[bench] phase {time.perf_counter() - t0:.1f} s")
+    return result
+
+
+def tooling_on_card(scene, backend, dev) -> None:
+    """Checkpoints, resume, refit_bvh and trace() on the card. Whatever it
+    writes goes under build/smoke (ignored by git)."""
+    from blink_torch.bvh.build import build_flat_bvh, refit_bvh
+    from blink_torch.ckpt import load_ckpt, save_ckpt
+    from blink_torch.obs.profile import trace
+
+    out_dir = os.path.join(ROOT, "build", "smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+
+    def adam_after_a_step(x):
+        p = {"albedo": x.requires_grad_(True)}
+        opt = torch.optim.Adam(list(p.values()), lr=1e-2)
+        (p["albedo"] ** 2).sum().backward()
+        opt.step()
+        return p, opt
+
+    p, opt = adam_after_a_step(torch.rand(10, 3, device=dev))
+    ck = os.path.join(out_dir, "ckpt.safetensors")
+    save_ckpt(ck, 3, p, opt.state_dict())
+    _, like = adam_after_a_step(torch.zeros(10, 3, device=dev))
+    step, got, st = load_ckpt(ck, {"albedo": torch.zeros(10, 3, device=dev)}, like.state_dict())
+    assert step == 3 and torch.equal(got["albedo"], p["albedo"].detach())
+    assert all(torch.equal(st["state"][0][f], v) for f, v in opt.state_dict()["state"][0].items())
+    log(f"[tooling] checkpoint of CUDA tensors loaded back equal ({got['albedo'].device})")
+
+    cfg = get_config("fit").override(width=64, height=64, deterministic=True, backend="pallas")
+    cornell = build_scene(cfg).to(dev)
+    target = render(cornell, cfg, device=dev)
+    a = cornell.materials.albedo
+    noise = torch.from_numpy(np.random.default_rng(3).random(tuple(a.shape), dtype=np.float32))
+    scene0 = cornell.replace(materials=cornell.materials.replace(
+        albedo=torch.clamp(a + 0.2 * noise.to(dev), 0.05, 0.95)))
+    kw = dict(lr=1e-2, optimize=("albedo",), log_path=os.path.join(out_dir, "fit.jsonl"))
+    whole, h = fit(scene0, target, cfg, FitConfig(steps=4, **kw), device=dev)
+    ck = os.path.join(out_dir, "fit.safetensors")
+    _, h1 = fit(scene0, target, cfg, FitConfig(steps=2, ckpt_every=2, ckpt_path=ck, **kw),
+                device=dev)
+    resumed, h2 = fit(scene0, target, cfg, FitConfig(steps=4, **kw), device=dev, resume_from=ck)
+    loss_d = max(abs(x - y) / abs(y) for x, y in zip(h1 + h2, h))
+    par_d = (resumed.materials.albedo - whole.materials.albedo).abs().max().item()
+    log(f"[tooling] fit 4 steps against 2 + resume 2 (Cornell 64x64, pallas): losses "
+        f"{h} and {h1 + h2}, largest relative difference {loss_d:.3g}; albedo largest "
+        f"difference {par_d:.3g} (tolerance rtol {RESUME_RTOL})")
+    assert len(h2) == 2 and h2[-1] <= h1[0] and loss_d <= RESUME_RTOL
+    assert torch.allclose(resumed.materials.albedo, whole.materials.albedo, rtol=RESUME_RTOL,
+                          atol=RESUME_RTOL)
+
+    tris = scene.triangles
+    bvh = build_flat_bvh(tris.verts.cpu().numpy(), tris.idx.cpu().numpy())
+    moved = tris.replace(verts=tris.verts + torch.tensor([0.25, -0.5, 1.0], device=dev))
+    r_dev = refit_bvh(bvh, moved)
+    r_cpu = refit_bvh(bvh, moved.to("cpu"))
+    for f in ("lo", "hi", "tv0", "te1", "te2"):
+        got = getattr(r_dev, f)
+        assert got.device == dev and torch.equal(got.cpu(), getattr(r_cpu, f)), f
+    log(f"[tooling] refit_bvh of {scene.n_triangles} triangles ({bvh.n_nodes} nodes) on the "
+        "card equal to the CPU's")
+
+    fcfg = get_config("sponza").override(width=WIDTH, height=HEIGHT, spp=1,
+                                         integrator="direct", backend="pallas")
+    names = ("albedo", "emission", "tri_verts")
+    zero = torch.zeros((HEIGHT, WIDTH, 3), device=dev)
+    logdir = os.path.join(out_dir, "trace")
+    with trace(logdir) as prof:
+        render_grad(scene, fcfg, zero, names, device=dev, backend=backend)
+        torch.cuda.synchronize()
+    files = [f for f in os.listdir(logdir) if f.endswith(".pt.trace.json")]
+    kernels = sorted({e.key for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA})
+    walks = [k for k in kernels if "wide_group_walk" in k]
+    log(f"[tooling] trace() of one fwd+bwd step: {files} in build/smoke/trace, "
+        f"{len(kernels)} kernel names; the walk kernels named: {walks or 'none'}")
+    assert files
+    log(f"[tooling] {time.perf_counter() - t0:.1f} s")
 
 
 # ------------------------------------------------------- path tracing
@@ -1025,7 +1262,7 @@ def phase_config4(scene, backend, dev, size: int | None = None, stride: int = ST
     spp_block 16, compact, rr_start 1, stochastic, textured) on the 1M
     scene through the production wide backend: one batch of 16 samples a
     pixel, 4 bounces of 3 + 3 wide launches. Returns the walks' sums for
-    rows 1-2 (path_bounces) and the launches."""
+    rows 1-2 (path_bounces) and the launches, and the frame's mean ms."""
     cfg = get_config("sponza").override(width=size, height=size)
     assert (cfg.spp, cfg.max_depth, cfg.spp_block, cfg.compact, cfg.rr_start) == (16, 4, 16, True, 1)
     samples = cfg.width * cfg.height * cfg.spp
@@ -1066,7 +1303,7 @@ def phase_config4(scene, backend, dev, size: int | None = None, stride: int = ST
     profile(frame, "config4 frame", mean)
     for v in sums.values():
         v["launches"] = walks
-    return sums
+    return sums, mean
 
 
 def phase_config5(scene, backend, dev, width: int | None = None, height: int = 512,
@@ -1842,8 +2079,15 @@ def main() -> int:
     phase_golden(dev)
     rows, frame_ms = phase_frame(scene, backend, cfg, dev, errs)
     profile(lambda: render(scene, cfg, device=dev, backend=backend), "frame", frame_ms)
-    phase_fwd_bwd(scene, backend, dev)
-    config4 = phase_config4(scene, backend, dev)
+    fwd_bwd = phase_fwd_bwd(scene, backend, dev)
+    bench = phase_bench(scene, backend, dev)
+    config4, config4_ms = phase_config4(scene, backend, dev)
+    fb, c4 = bench["detail"]["fwd_bwd"], bench["detail"]["config4"]
+    log(f"[bench] the harness against this script's own times (ms): fwd+bwd geometry "
+        f"{fb['wall_s'] * 1e3:.3f} against {fwd_bwd['geometry_ms']:.3f}, materials "
+        f"{fb['materials_only']['wall_s'] * 1e3:.3f} against {fwd_bwd['materials_ms']:.3f}, "
+        f"forward {fb['fwd_only_wall_s'] * 1e3:.3f} against {fwd_bwd['fwd_ms']:.3f}; "
+        f"config 4 {c4['wall_s'] * 1e3:.3f} against {config4_ms:.3f}")
     for row in rows:
         c4 = config4[row["name"]]
         row["max_abs_err"] = max(row["max_abs_err"], c4["err"])

@@ -5,7 +5,8 @@
 renderer: traversal gives fixed topology, and autograd flows through hit
 refinement, light sampling and shading into any chosen subset of the scene
 parameters (geometry, materials, camera). `fit` recovers parameters from a
-target image with Adam.
+target image with Adam, with checkpoints, resume and tensorboard
+summaries.
 
 Entry points run on the CUDA device unless the caller asks for the CPU:
 with no CUDA device and no explicit `device="cpu"` they raise.
@@ -105,8 +106,10 @@ def params_from_numpy(d: Mapping[str, np.ndarray], device) -> dict[str, torch.Te
 
 
 def build_scene(cfg: RenderConfig) -> Scene:
-    """The scene a config names, on the host."""
-    from blink_torch.scene import builders
+    """The scene a config names, on the host: a preset, or `obj:<path>` (a
+    Wavefront OBJ under the default material and camera)."""
+    from blink_torch.scene import builders, io
+    from blink_torch.scene import scene as sc
 
     if cfg.scene == "cornell":
         return builders.cornell_box()
@@ -114,6 +117,9 @@ def build_scene(cfg: RenderConfig) -> Scene:
         return builders.bunny_scene(cfg.bunny_subdiv)
     if cfg.scene == "sponza":
         return builders.sponza_scene(cfg.sponza_tris)
+    if cfg.scene.startswith("obj:"):
+        s = sc.make_scene(triangles=io.load_obj(cfg.scene[4:]))
+        return s.replace(lights=sc.derive_lights(s.materials, s.spheres, s.triangles))
     raise KeyError(f"unknown scene '{cfg.scene}'")
 
 
@@ -177,19 +183,30 @@ def render_grad(scene: Scene, cfg: RenderConfig, target,
     }
 
 
+def _adam_init(opt: torch.optim.Adam) -> None:
+    """Adam's state for every parameter, made now as optax.adam's init
+    makes it (Adam would make the same at its first step), so that
+    opt.state_dict() is a full template for a checkpoint."""
+    for group in opt.param_groups:
+        for p in group["params"]:
+            opt.state[p] = {"step": torch.tensor(0.0), "exp_avg": torch.zeros_like(p),
+                            "exp_avg_sq": torch.zeros_like(p)}
+
+
 def fit(scene0: Scene, target, cfg: RenderConfig, fit_cfg: FitConfig | None = None,
         device=None, backend=None, resume_from: str = ""):
     """Inverse rendering (config 3): recover the parameters named by
     `fit_cfg.optimize` from a target image by Adam on pixel MSE, one JSON
-    line per step to the log. Returns (scene, history of losses)."""
-    from blink_torch.obs.log import JsonlLogger
+    line per step to the log and, with `tb_dir`, tensorboard scalars (and a
+    render every `tb_image_every` steps). With `ckpt_path`, the parameters
+    and Adam's state are saved every `ckpt_every` steps; `resume_from`
+    restores them and continues at the saved step. Returns (scene, history
+    of the losses of the steps run)."""
+    from blink_torch.ckpt import load_ckpt, save_ckpt
+    from blink_torch.obs.log import JsonlLogger, TensorboardLogger
+    from blink_torch.render.api import render_image
 
     fit_cfg = fit_cfg or FitConfig()
-    if fit_cfg.ckpt_path or resume_from or fit_cfg.tb_dir:
-        raise NotImplementedError(
-            "checkpoints, resume and tensorboard come with the tooling slice "
-            "(ROADMAP.md queue 1)"
-        )
     device, scene0, backend = _prepare(scene0, cfg, device, backend)
     target = _target(target, device)
     params = _leaf_params(scene0, fit_cfg.optimize)
@@ -199,14 +216,30 @@ def fit(scene0: Scene, target, cfg: RenderConfig, fit_cfg: FitConfig | None = No
         p.grad = torch.zeros_like(p)
     # The update of optax.adam: b1 0.9, b2 0.999, eps 1e-8 outside the root.
     opt = torch.optim.Adam(list(params.values()), lr=fit_cfg.lr)
+    _adam_init(opt)
+    start_step = 0
+    if resume_from:
+        start_step, saved, opt_state = load_ckpt(resume_from, params, opt.state_dict())
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(saved[n])
+        opt.load_state_dict(opt_state)
     history = []
-    with JsonlLogger(fit_cfg.log_path) as log:
-        for step in range(fit_cfg.steps):
+    with JsonlLogger(fit_cfg.log_path) as log, TensorboardLogger(fit_cfg.tb_dir) as tb:
+        for step in range(start_step, fit_cfg.steps):
             opt.zero_grad(set_to_none=False)
             loss = loss_fn(params, scene0, cfg, backend, target)
             loss.backward()
             opt.step()
             history.append(float(loss.detach()))
             log.log(step=step, loss=history[-1])
+            tb.scalar("fit/loss", history[-1], step)
+            if fit_cfg.tb_image_every and (step + 1) % fit_cfg.tb_image_every == 0:
+                with torch.no_grad():
+                    tb.image("fit/render", render_image(merge_params(scene0, params), cfg,
+                                                        backend), step)
+            if (fit_cfg.ckpt_path and fit_cfg.ckpt_every > 0
+                    and (step + 1) % fit_cfg.ckpt_every == 0):
+                save_ckpt(fit_cfg.ckpt_path, step + 1, params, opt.state_dict())
     fitted = {n: p.detach() for n, p in params.items()}
     return merge_params(scene0, fitted), history

@@ -1,6 +1,6 @@
 """Host-side BVH build: Morton-ordered implicit LBVH, flattened to DFS
-preorder with skip links (counterpart of `blink.bvh.build`, array for
-array; `refit_bvh` is still to be ported, ROADMAP.md queue 1).
+preorder with skip links, and its refit at fixed topology (counterpart of
+`blink.bvh.build`, array for array).
 
 Construction (vectorized numpy):
   1. Triangle centroids -> 30-bit Morton codes -> argsort.
@@ -15,7 +15,10 @@ Construction (vectorized numpy):
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+import torch
 
 from blink_torch.bvh.types import FlatBVH
 
@@ -135,7 +138,7 @@ def build_flat_bvh(verts: np.ndarray, idx: np.ndarray, leaf_size: int = 16) -> F
     p0, p1, p2 = v[idx[:, 0]], v[idx[:, 1]], v[idx[:, 2]]
     tlo = np.minimum(np.minimum(p0, p1), p2)
     thi = np.maximum(np.maximum(p0, p1), p2)
-    lo, hi, skip, first, count, order, _ = build_boxtree(tlo, thi, K)
+    lo, hi, skip, first, count, order, heap2pre = build_boxtree(tlo, thi, K)
 
     # Reordered, padded triangle SoA.
     P = (skip.shape[0] + 1) // 2 * K
@@ -154,5 +157,51 @@ def build_flat_bvh(verts: np.ndarray, idx: np.ndarray, leaf_size: int = 16) -> F
         count=count.astype(np.int32),
         tv0=pad(sp0, 0.0), te1=pad(sp1 - sp0, 0.0), te2=pad(sp2 - sp0, 0.0),
         tri_id=tri_id,
+        heap2pre=heap2pre.astype(np.int32),
         leaf_size=K,
+    )
+
+
+def refit_bvh(bvh: FlatBVH, tris) -> FlatBVH:
+    """Bounds refit at fixed topology after the vertices moved (e.g. while
+    fitting tri_verts), in torch on the vertices' own device: the reordered
+    triangle SoA and leaf boxes from the moved vertices, pooled one heap
+    level at a time up to the root, then one scatter through heap2pre.
+    Bounds are control structure, not differentiated (the vertices are
+    detached). Returns `bvh` with lo, hi, tv0, te1 and te2 as tensors on
+    that device; needs build_flat_bvh's heap2pre."""
+    if bvh.heap2pre is None:
+        raise ValueError("refit_bvh needs build_flat_bvh's heap2pre")
+    K = bvh.leaf_size
+    verts = tris.verts.detach()
+    dev = verts.device
+    tri_id = torch.as_tensor(bvh.tri_id, device=dev).long()
+    ok = (tri_id >= 0)[:, None]
+    i = tris.idx.to(dev).long()[tri_id.clamp(min=0)]
+    a, b, c = verts[i[:, 0]], verts[i[:, 1]], verts[i[:, 2]]
+    zero = torch.zeros_like(a)
+    inf = torch.full_like(a, float("inf"))
+    plo = torch.where(ok, torch.minimum(torch.minimum(a, b), c), inf)
+    phi = torch.where(ok, torch.maximum(torch.maximum(a, b), c), -inf)
+
+    n_leaves = tri_id.shape[0] // K
+    levels_lo = [plo.reshape(n_leaves, K, 3).amin(1)]
+    levels_hi = [phi.reshape(n_leaves, K, 3).amax(1)]
+    for _ in range(int(np.log2(max(n_leaves, 1)))):
+        levels_lo.append(levels_lo[-1].reshape(-1, 2, 3).amin(1))
+        levels_hi.append(levels_hi[-1].reshape(-1, 2, 3).amax(1))
+    # Heap order is root to leaves; the levels were built leaves to root.
+    heap_lo = torch.cat(levels_lo[::-1])
+    heap_hi = torch.cat(levels_hi[::-1])
+    empty = ~(torch.isfinite(heap_lo).all(1) & torch.isfinite(heap_hi).all(1))
+    empty = (empty | (heap_hi < heap_lo).any(1))[:, None]
+    heap_lo = torch.where(empty, EMPTY_BOX, heap_lo)
+    heap_hi = torch.where(empty, EMPTY_BOX, heap_hi)
+    pre = torch.as_tensor(bvh.heap2pre, device=dev).long()
+    return dataclasses.replace(
+        bvh,
+        lo=torch.zeros_like(heap_lo).index_copy_(0, pre, heap_lo),
+        hi=torch.zeros_like(heap_hi).index_copy_(0, pre, heap_hi),
+        tv0=torch.where(ok, a, zero), te1=torch.where(ok, b - a, zero),
+        te2=torch.where(ok, c - a, zero),
     )

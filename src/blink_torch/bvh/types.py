@@ -3,7 +3,8 @@
 Nodes in DFS preorder with skip links: the successor of a node whose box
 is hit is `node+1`, of a missed one `skip[node]`. Triangles are reordered
 by leaf and stored as (v0, e1, e2); `tri_id` maps back to the original
-triangle index (-1 for padding).
+triangle index (-1 for padding). `build.refit_bvh` returns one whose lo,
+hi, tv0, te1 and te2 are tensors on the moved vertices' device.
 """
 from __future__ import annotations
 
@@ -23,6 +24,9 @@ class FlatBVH:
     te1: np.ndarray  # (P, 3) f32
     te2: np.ndarray  # (P, 3) f32
     tri_id: np.ndarray  # (P,) i32 original triangle index (-1 padding)
+    #: Heap (level order, root to leaves) -> preorder map of build_flat_bvh's
+    #: implicit tree, for refit_bvh; None for other builds.
+    heap2pre: np.ndarray | None = None  # (N,) i32
     leaf_size: int = 4
 
     @property

@@ -1,12 +1,11 @@
-"""CLI: python -m blink_torch {render,fit} --config <name|file.json> ...
-(counterpart of the `render` and `fit` subcommands of `blink.cli`).
+"""CLI: python -m blink_torch {render,fit,bench} --config <name|file.json> ...
+(counterpart of `blink.cli`).
 """
 from __future__ import annotations
 
 import argparse
 import json
 import sys
-import time
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -20,7 +19,7 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    choices=["auto", "brute", "bvh", "wide", "pallas"])
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--deterministic", action="store_true", default=None)
-    p.add_argument("--scene", default=None, help="cornell|bunny|sponza")
+    p.add_argument("--scene", default=None, help="cornell|bunny|sponza|obj:<path>")
     p.add_argument("--sponza-tris", dest="sponza_tris", type=int, default=None)
     p.add_argument("--bunny-subdiv", dest="bunny_subdiv", type=int, default=None)
     p.add_argument("--device", default=None,
@@ -53,24 +52,22 @@ def cmd_render(args: argparse.Namespace) -> int:
 
     from blink_torch.api import build_scene, render, resolve_device
     from blink_torch.kernels.api import make_backend
+    from blink_torch.obs.profile import timed, trace
 
     cfg = _load_cfg(args)
     device = resolve_device(args.device)
     scene = build_scene(cfg).to(device)
-    t0 = time.perf_counter()
-    backend = make_backend(cfg.backend, scene)
-    t1 = time.perf_counter()
-    img = render(scene, cfg, device=device, backend=backend)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    dt = time.perf_counter() - t1
+    out = {"cmd": "render", "config": args.config, "device": str(device)}
+    with timed(out, "bvh_s"):
+        backend = make_backend(cfg.backend, scene)
+    with trace(args.profile), timed(out, "wall_s"):
+        img = render(scene, cfg, device=device, backend=backend)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
     rays = cfg.width * cfg.height * cfg.spp
     # wall_s is the first frame: on a CUDA device it includes the kernels'
     # build at first use.
-    print(json.dumps({
-        "cmd": "render", "config": args.config, "device": str(device),
-        "bvh_s": t1 - t0, "wall_s": dt, "rays": rays, "rays_per_s": rays / dt,
-    }))
+    print(json.dumps({**out, "rays": rays, "rays_per_s": rays / out["wall_s"]}))
     _write_image(args.out, img)
     return 0
 
@@ -86,6 +83,7 @@ def _render_dist(args: argparse.Namespace) -> int:
     from blink_torch.dist import mesh
     from blink_torch.dist.render import dist_render
     from blink_torch.kernels.api import make_backend
+    from blink_torch.obs.profile import timed, trace
 
     n = args.dist
     # gloo for CPU tensors; else the default (NCCL where there is a card).
@@ -102,17 +100,14 @@ def _render_dist(args: argparse.Namespace) -> int:
         device = resolve_device(args.device)
         scene = build_scene(cfg).to(device)
         backend = make_backend(cfg.backend, scene)
-        t0 = time.perf_counter()
-        img = dist_render(scene, cfg, backend=backend, device=device)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        dt = time.perf_counter() - t0
+        out = {"cmd": "render", "config": args.config, "device": str(device), "dist": n}
+        with trace(args.profile), timed(out, "wall_s"):
+            img = dist_render(scene, cfg, backend=backend, device=device)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
         if dist.get_rank() == 0:
             rays = cfg.width * cfg.height * cfg.spp
-            print(json.dumps({
-                "cmd": "render", "config": args.config, "device": str(device),
-                "dist": n, "wall_s": dt, "rays": rays, "rays_per_s": rays / dt,
-            }))
+            print(json.dumps({**out, "rays": rays, "rays_per_s": rays / out["wall_s"]}))
             _write_image(args.out, img)
     finally:
         mesh.close()
@@ -120,15 +115,10 @@ def _render_dist(args: argparse.Namespace) -> int:
 
 
 def _write_image(path: str, img) -> None:
-    if not path:
-        return
-    import numpy as np
+    from blink_torch.scene.io import save_image_npy, save_image_ppm
 
-    img = img.cpu().numpy()
-    if path.endswith(".ppm"):
-        _save_ppm(path, img)
-    else:
-        np.save(path, img)
+    if path:
+        (save_image_ppm if path.endswith(".ppm") else save_image_npy)(path, img)
 
 
 def cmd_fit(args: argparse.Namespace) -> int:
@@ -155,8 +145,10 @@ def cmd_fit(args: argparse.Namespace) -> int:
         noise = 0.15 * torch.randn(scene.spheres.center.shape, generator=gen)
         center = scene.spheres.center + noise.to(device)
         scene0 = scene.replace(spheres=scene.spheres.replace(center=center))
-    fit_cfg = FitConfig(steps=args.steps, lr=args.lr, log_path=args.log or "")
-    _, history = fit(scene0, target, cfg, fit_cfg, device=device, backend=backend)
+    fit_cfg = FitConfig(steps=args.steps, lr=args.lr, ckpt_path=args.ckpt, log_path=args.log,
+                        tb_dir=args.tb)
+    _, history = fit(scene0, target, cfg, fit_cfg, device=device, backend=backend,
+                     resume_from=args.resume)
     print(json.dumps({
         "cmd": "fit", "steps": len(history),
         "loss_first": history[0] if history else None,
@@ -165,18 +157,15 @@ def cmd_fit(args: argparse.Namespace) -> int:
     return 0
 
 
-def _save_ppm(path: str, img, gamma: float = 2.2) -> None:
-    """Binary PPM, tonemapped, for eyeballing renders."""
-    import numpy as np
+def cmd_bench(args: argparse.Namespace) -> int:
+    from blink_torch.benchmarks.harness import run_bench
 
-    img8 = (np.clip(img, 0.0, 1.0) ** (1.0 / gamma) * 255.0 + 0.5).astype(np.uint8)
-    h, w = img8.shape[:2]
-    with open(path, "wb") as fh:
-        fh.write(f"P6\n{w} {h}\n255\n".encode())
-        fh.write(img8.tobytes())
+    print(json.dumps(run_bench(args.config, quick=args.quick, device=args.device,
+                               backend=args.backend)))
+    return 0
 
 
-def main(argv: list[str] | None = None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="blink_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     pr = sub.add_parser("render", help="render a config to an image")
@@ -184,15 +173,34 @@ def main(argv: list[str] | None = None) -> int:
     pr.add_argument("--out", default="", help=".npy or .ppm output path")
     pr.add_argument("--dist", type=int, default=0, metavar="N",
                     help="split image rows over N ranks (N > 1: launch with torchrun)")
+    pr.add_argument("--profile", default="",
+                    help="write a torch.profiler trace of the render to this logdir")
     pr.set_defaults(fn=cmd_render)
     pf = sub.add_parser("fit", help="inverse rendering (config 3)")
     _add_common(pf)
     pf.add_argument("--steps", type=int, default=100)
     pf.add_argument("--lr", type=float, default=2e-2)
     pf.add_argument("--target", default="", help=".npy target image (default: self-render)")
+    pf.add_argument("--ckpt", default="", help="safetensors checkpoint path (every 50 steps)")
+    pf.add_argument("--resume", default="", help="checkpoint to continue from")
     pf.add_argument("--log", default="", help="JSONL per-step log (default: stderr)")
+    pf.add_argument("--tb", default="", help="tensorboard logdir")
     pf.set_defaults(fn=cmd_fit)
-    args = ap.parse_args(argv)
+    pb = sub.add_parser("bench", help="benchmark one config (benchmarks.harness.run_bench)")
+    pb.add_argument("--config", default="sponza")
+    pb.add_argument("--quick", action="store_true", help="cap size, spp and triangles")
+    pb.add_argument("--backend", default=None,
+                    choices=["auto", "brute", "bvh", "wide", "pallas"],
+                    help="override the config's backend (Cornell's auto is brute: no kernel)")
+    pb.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA device; 'cpu' for the plain "
+                         "torch path)")
+    pb.set_defaults(fn=cmd_bench)
+    return ap
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
     return args.fn(args)
 
 

@@ -15,7 +15,7 @@ from typing import Any
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    scene: str = "cornell"  # cornell | bunny | sponza
+    scene: str = "cornell"  # cornell | bunny | sponza | obj:<path>
     width: int = 256
     height: int = 256
     spp: int = 1
@@ -64,8 +64,7 @@ class RenderConfig:
 
 @dataclasses.dataclass(frozen=True)
 class FitConfig:
-    """Inverse-rendering loop config (config 3). Checkpoints and tensorboard
-    (ckpt_path, tb_dir) wait for the tooling slice: api.fit raises on them."""
+    """Inverse-rendering loop config (config 3)."""
 
     steps: int = 200
     lr: float = 2e-2

@@ -1,1 +1,1 @@
-"""Observability: JSONL metrics logging."""
+"""Observability: JSONL and tensorboard metrics, profiler traces."""

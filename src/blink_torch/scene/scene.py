@@ -188,6 +188,20 @@ def derive_lights(materials: Materials, spheres: Spheres, triangles: Triangles) 
     return Lights(kind=_i32(kinds), prim=_i32(prims))
 
 
+def triangle_vertices(tris: Triangles, prim: torch.Tensor):
+    """Gather (differentiably) the three vertices of triangle `prim`."""
+    i = tris.idx[prim.long()].long()  # (..., 3)
+    return tris.verts[i[..., 0]], tris.verts[i[..., 1]], tris.verts[i[..., 2]]
+
+
+def triangle_area_normal(tris: Triangles, prim: torch.Tensor):
+    """(area, unit geometric normal) of triangle `prim`, differentiable."""
+    v0, v1, v2 = triangle_vertices(tris, prim)
+    c = vec.cross(v1 - v0, v2 - v0)
+    n2 = vec.length(c)
+    return 0.5 * n2, c / torch.clamp(n2, min=vec.EPS)[..., None]
+
+
 _GROUPS = {
     "spheres": Spheres,
     "triangles": Triangles,

@@ -18,6 +18,17 @@ from blink_torch.scene.scene import Triangles, scene_from_numpy
 from blink_torch.scene.shade import pack_tri_shade_np
 from test_bvh import _random_tris
 
+# The tier-1 command runs the test files on 6 pytest-xdist workers that
+# share the machine's cores, and torch's default of one intra-op thread a
+# core in each worker oversubscribes them: the JAX files beside the port's,
+# the interpret file first (it sets the run's wall time), then run slower.
+# Every worker imports this module while it collects, so the port's tests
+# run torch on one thread there. Subprocesses a test starts keep torch's
+# default, DEFAULT_THREADS, and a test whose claim must hold at that count
+# too sets it for its own span.
+DEFAULT_THREADS = torch.get_num_threads()
+torch.set_num_threads(1)
+
 _GROUPS = ("spheres", "triangles", "materials", "lights", "camera")
 
 

@@ -165,7 +165,7 @@ def test_four_ranks_match_replicated_and_reference(tmp_path):
     from blink.dist.scene_shard import shard_scene_triangles as jax_shard_scene_triangles
     from blink.scene.scene import make_scene as jax_make_scene
     from test_bvh import _random_rays, _random_tris
-    from test_torch_binary import _reference
+    from test_torch_binary_walks import _reference
 
     tris, tris_b = _random_tris(3000, 31), _random_tris(500, 21)  # 511 nodes: one ref shape
     o, d = _random_rays(300, 32)

@@ -21,11 +21,14 @@ from blink_torch.config import FitConfig, get_config
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
-def test_fit_loss_history_matches_reference():
+def test_fit_loss_history_matches_reference(tmp_path):
     """5 Adam steps on Cornell 32x32 from the same numpy-perturbed sphere
     centres towards the same target. Adam's first steps are close to
     sign(g) * lr, so a gradient near zero may move the two runs apart; the
-    histories agree within rtol 1e-4 (measured 2.5e-6 on the CPU)."""
+    histories agree within rtol 1e-4 (measured 2.5e-6 on the CPU). A
+    checkpoint of that fit does not resume another parameter set (a
+    missing key) or a scene of 7 spheres (a wrong shape), with blink's
+    errors."""
     over = dict(width=32, height=32)
     jcfg = jax_get_config("fit").override(**over)
     jscene = jax_build_scene(jcfg)
@@ -43,13 +46,23 @@ def test_fit_loss_history_matches_reference():
     assert len(hist) == 5 and hist[-1] < hist[0]
     np.testing.assert_allclose(hist, ref, rtol=1e-4)
     assert not fitted.spheres.center.requires_grad
-    with pytest.raises(NotImplementedError, match="tooling slice"):
-        fit(scene0, target, cfg, FitConfig(steps=1, ckpt_path="x"), device="cpu")
+    ck = str(tmp_path / "fit.safetensors")
+    fit(scene0, target, cfg, FitConfig(steps=1, ckpt_every=1, ckpt_path=ck), device="cpu")
+    with pytest.raises(KeyError, match="checkpoint is missing leaf 'params.emission'"):
+        fit(scene0, target, cfg, FitConfig(steps=2, optimize=("sphere_center", "emission")),
+            device="cpu", resume_from=ck)
+    sph = scene0.spheres
+    scene7 = scene0.replace(spheres=sph.replace(
+        center=sph.center[:7], radius=sph.radius[:7], material_id=sph.material_id[:7]))
+    with pytest.raises(ValueError, match=r"checkpoint leaf 'params.sphere_center' has shape "
+                                         r"\(8, 3\), template expects \(7, 3\)"):
+        fit(scene7, target, cfg, FitConfig(steps=2), device="cpu", resume_from=ck)
 
 
 def test_cli_fit_cpu(tmp_path):
     log = tmp_path / "fit.jsonl"
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # One intra-op thread, as in the test workers (test_torch_path.py's CLI test).
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-m", "blink_torch", "fit", "--config", "fit",
          "--width", "16", "--height", "16", "--steps", "2", "--device", "cpu",

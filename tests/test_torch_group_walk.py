@@ -5,9 +5,8 @@ On the CPU: every build_chunked_wide layout keeps each leaf child's
 triangle span inside the record table (the kernel loads a leaf's records
 in batches, each load predicated on the leaf's end, so it reads nothing
 past that span) and a node's child records at a 16-byte stride; the
-plain walks find blink's flat-BVH hits on the edge cases below; the
-parser of ptxas's spill report. On the card (gpu
-marker): the kernels against the plain walks, bit for bit, on the same
+plain walks find blink's flat-BVH hits on the edge cases below. On the
+card (gpu marker): the kernels against the plain walks, bit for bit, on the same
 edge cases: ray counts of 1 and not a multiple of 32 or 128, t_far = 0
 lanes, direction components exactly 0, rays blocked before the call,
 leaves of wide_leaf = 44 triangles and two coincident triangles (the
@@ -22,7 +21,6 @@ import torch
 
 from blink.bvh import build_flat_bvh
 from blink.kernels.traverse import traverse_anyhit, traverse_closest
-from blink_torch.kernels import _build
 from blink_torch.kernels import traverse_wide as tw
 from blink_torch.kernels.types import T_MIN
 from test_bvh import _random_rays, _random_tris
@@ -103,38 +101,6 @@ def test_group_plain_walks_match_reference_at_the_edges(quant):
     blocked = tw.anyhit_wide_plain(ot, dt, chunks, torch.from_numpy(t_far), leaf_mode="group")
     assert 0 < b_ref.sum() < N_RAYS and not b_ref[::5].any()
     np.testing.assert_array_equal(blocked.numpy(), b_ref)
-
-
-ENTRY = "_ZN12_GLOBAL__N_115wide_group_walkILb1ELb1EEEvPKfS2_PfPiPbPKvS2_PKiPK6float4S8_if"
-
-
-def ptxas_entry(name, stack, stores, loads, regs):
-    return (f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
-            f"ptxas info    : Function properties for {name}\n"
-            f"    {stack} bytes stack frame, {stores} bytes spill stores, {loads} bytes spill loads\n"
-            f"ptxas info    : Used {regs} registers, used 0 barriers, {stack} bytes cumulative "
-            f"stack size\n")
-
-
-@pytest.mark.parametrize("text, spills", [
-    # a template kernel in an anonymous namespace, with spills
-    (ptxas_entry(ENTRY, 768, 8, 12, 72), {ENTRY: 20}),
-    # two entries, one of them an extern "C" name, and nvcc's other lines
-    ("ptxas info    : 0 bytes gmem\n" + ptxas_entry("sphere_pass", 0, 0, 0, 29)
-     + "ptxas info    : Compile time = 12.300 ms\n" + ptxas_entry(ENTRY, 768, 0, 0, 127),
-     {"sphere_pass": 0, ENTRY: 0}),
-    # a device function reported on its own is not a kernel
-    ("ptxas info    : Function properties for _Z3fooi\n"
-     "    16 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads\n"
-     + ptxas_entry(ENTRY, 768, 0, 0, 127), {ENTRY: 0}),
-    # nvcc's name for an anonymous namespace in a whole-program build
-    (ptxas_entry("_ZN34_INTERNAL_0a1b2c3d_12_wide_walk_cu15wide_group_walkILb0ELb1EEEvPKf",
-                 768, 0, 4, 128),
-     {"_ZN34_INTERNAL_0a1b2c3d_12_wide_walk_cu15wide_group_walkILb0ELb1EEEvPKf": 4}),
-    ("", {}),
-], ids=["spills", "two-entries", "device-function", "internal-namespace", "empty"])
-def test_ptxas_spills_by_kernel(text, spills):
-    assert _build.ptxas_spills(text) == spills
 
 
 @pytest.mark.gpu

@@ -59,7 +59,8 @@ def test_render_default_device_needs_cuda(monkeypatch):
 
 def test_cli_render_cpu(tmp_path):
     out = tmp_path / "img.npy"
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # One intra-op thread, as in the test workers (test_torch_path.py's CLI test).
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-m", "blink_torch", "render", "--config", "bunny",
          "--bunny-subdiv", "2", "--width", "32", "--height", "32",

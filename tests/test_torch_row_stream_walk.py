@@ -1,21 +1,21 @@
-"""The wide walk's row, stream and skip leaf schedules at their edges, and
-the names of the kernels that run them (csrc/wide_walk.cu::wide_group_walk
-with MODE row or stream: group's walk reading the batch table tbat; skip:
-group's walk without leaf tests).
+"""The wide walk's row, stream and skip leaf schedules at their edges
+(csrc/wide_walk.cu::wide_group_walk with MODE row or stream: group's walk
+reading the batch table tbat; skip: group's walk without leaf tests).
 
 On the CPU: the plain row and stream walks (what the kernels are held to
 on the card) against blink's flat-BVH walks, quantized and f32 boxes, on
 the group edge case built with row tables: leaves of 44 triangles over
 six 8-record batches, an exactly coincident pair, exact zero direction
-components, t_far = 0 lanes, and rays whose only hit lies in the leaf
-still pending when the stream walk ends; plain row's pops and tests equal
-plain group's ray for ray, and plain stream pops at least group's nodes;
-plain skip tests nothing, changes no hit, pops at least group's nodes and
-exactly group's on the rays group finds no hit for; ptxas's report of all
-16 wide kernels' names, as chip_smoke.py reads it
-(traverse_wide.kernel_symbol). On the card (gpu marker): every row, stream
-and skip kernel and the counting build against the plain walks at 1, 31,
-33, 97 and 333 rays.
+components and t_far = 0 lanes; plain row's pops and tests equal plain
+group's ray for ray, and plain stream pops at least group's nodes; plain
+skip tests nothing, changes no hit, pops at least group's nodes and
+exactly group's on the rays group finds no hit for. On the card (gpu
+marker): every row, stream and skip kernel and the counting build against
+the plain walks at 1, 31, 33, 97 and 333 rays, and on the late-hit rays.
+The late-hit case (rays whose only hit lies in the leaf still pending when
+the stream walk ends) is held to blink on the CPU by
+test_torch_stream_late_hit.py; ptxas's report of the 16 wide kernels by
+test_torch_wide_ptxas.py.
 """
 import dataclasses
 import functools
@@ -28,12 +28,11 @@ import torch
 from blink.bvh import build_flat_bvh
 from blink.kernels.traverse import traverse_anyhit, traverse_closest
 from blink.scene.scene import Triangles
-from blink_torch.kernels import _build
 from blink_torch.kernels import traverse_wide as tw
 from blink_torch.kernels.types import T_MAX
 from test_bvh import _random_rays, _random_tris
 from test_torch_build import port_tris
-from test_torch_group_walk import CHUNK, N_RAYS, N_TRIS, WIDE_LEAF, leaf_spans, ptxas_entry
+from test_torch_group_walk import CHUNK, N_RAYS, N_TRIS, WIDE_LEAF, leaf_spans
 
 N_SLIVERS = 1000  # triangles whose boxes hold the pending-leaf rays' line
 N_LATE = 8  # rays whose only hit lies in the last leaf they reach
@@ -140,38 +139,6 @@ def test_row_stream_plain_walks_match_reference_at_the_edges(mode, quant):
 
 
 @pytest.mark.parametrize("quant", [True, False], ids=["quant", "f32"])
-def test_stream_finds_a_hit_in_the_leaf_pending_at_the_end(quant, monkeypatch):
-    """Each late-hit ray reaches several leaves, and the stream walk finds
-    its one hit only in the test of the pending leaf after the walk: the
-    last call of the leaf tests, for closest and any hit alike."""
-    _, host, o, d, t_far = late_hit_case(quant)
-    p_ref, b_ref = assert_blink_hits(late_hit_case, quant, "stream")
-    assert (p_ref == N_SLIVERS).all() and b_ref.all()
-    chunks = [tw.WideChunk.from_host(c, "cpu") for c in host]
-    leaf_tests = tw._leaf_tests
-    for any_hit in (False, True):
-        for r in range(N_LATE):
-            got = []
-
-            def recorded(*args, **kw):
-                out = leaf_tests(*args, **kw)
-                got.append(bool(out[0].any()))
-                return out
-
-            monkeypatch.setattr(tw, "_leaf_tests", recorded)
-            ot, dt = torch.from_numpy(o[r:r + 1]), torch.from_numpy(d[r:r + 1])
-            if any_hit:
-                *_, tests = tw.anyhit_wide_plain(ot, dt, chunks, torch.from_numpy(
-                    t_far[r:r + 1]), counts=True, leaf_mode="stream")
-            else:
-                *_, tests = tw.closest_wide_plain(ot, dt, chunks, counts=True,
-                                                  leaf_mode="stream")
-            monkeypatch.setattr(tw, "_leaf_tests", leaf_tests)
-            assert len(got) >= 3 and got[-1] and not any(got[:-1]), (any_hit, r, got)
-            assert int(tests[0]) >= N_SLIVERS, (any_hit, r)
-
-
-@pytest.mark.parametrize("quant", [True, False], ids=["quant", "f32"])
 def test_row_counts_equal_group_and_stream_pops_a_superset(quant):
     """Plain row does group's work ray for ray (the same pops and tests);
     plain stream, whose best t arrives a leaf late, pops at least as many
@@ -219,24 +186,6 @@ def test_skip_walks_group_nodes_without_leaf_tests(quant):
                                                 leaf_mode="group")
     assert not blocked.any() and not tests.any() and g_blocked.any()
     assert (pops >= g_pops).all() and torch.equal(pops[~g_blocked], g_pops[~g_blocked])
-
-
-#: nvcc's mangled names of the wide kernels: wide_group_walk<any_hit,
-#: quant, mode> for group (0), row (1), stream (2) and skip (3).
-GROUP_WALK = "_ZN12_GLOBAL__N_115wide_group_walkILb{}ELb{}ELi{}EEEvPKfS2_PfPiPbPKvS2_PKiPK6float4S9_S9_if"
-NAMES = {(a, mo, q): GROUP_WALK.format(a, q, tw.LEAF_MODES.index(mo))
-         for a in (0, 1) for q in (0, 1) for mo in tw.LEAF_MODES}
-
-
-def test_ptxas_report_of_the_wide_kernels():
-    """ptxas's report of all 16 wide kernels, one of them spilling: the
-    spills by name, and kernel_symbol picks each variant's name alone."""
-    text = "".join(ptxas_entry(k, 768, 4 if v == (1, "stream", 1) else 0, 0, 128)
-                   for v, k in NAMES.items())
-    spills = _build.ptxas_spills(text)
-    assert spills == {k: 4 if v == (1, "stream", 1) else 0 for v, k in NAMES.items()}
-    for (a, mo, q), k in NAMES.items():
-        assert [x for x in spills if tw.kernel_symbol(bool(a), mo, bool(q)) in x] == [k]
 
 
 @pytest.mark.gpu

@@ -1,13 +1,17 @@
-"""blink_torch's wide walk under every leaf schedule and child-box layout
-against blink: the f32 and quantized tables with and without row tables,
-the group, row, stream and skip plain walks, BLINK_LEAF_MODE's dispatch,
-and a render through a Backend whose chunks carry row tables.
+"""blink_torch's wide tables under every child-box layout against blink:
+the f32 and quantized tables with and without row tables, split_free and
+unpadded chunks, a hand-built chunk's box layout, and a render through a
+Backend whose chunks carry row tables.
 
-The plain walks must find blink's flat-BVH hits (prim exactly, t within
-rtol/atol 1e-6, blocked flags exactly) and each other's bit for bit; skip
-finds nothing. blink's own Pallas kernels are held to the same reference by
-tests/test_pallas_interpret.py, so this file makes no interpret-mode call.
+The shared inputs live here (shared_case, blink_reference) and are imported
+by name by test_torch_wide_leaf_modes.py (each leaf schedule's plain walk
+against blink's flat-BVH hits) and test_torch_wide_dispatch.py (seen marks,
+BLINK_LEAF_MODE's dispatch). blink's own Pallas kernels are held to the same
+reference by tests/test_pallas_interpret.py, so these files make no
+interpret-mode call.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -65,26 +69,41 @@ def leaf_children(chunks) -> int:
     return n
 
 
-@pytest.fixture(scope="module")
-def case():
+@functools.lru_cache(maxsize=None)
+def shared_case() -> dict:
+    """N_TRIS random triangles, their chunks with f32 and quantized boxes,
+    N_RAYS random rays and t_far (every fourth lane dead). Built once a
+    process; no test changes it."""
     tris = _random_tris(N_TRIS, 51)
     o, d = _random_rays(N_RAYS, 52)
-    bvh = build_flat_bvh(tris)
-    t_ref, p_ref = traverse_closest(o, d, bvh)
     t_far = np.full((N_RAYS,), T_FAR, np.float32)
     t_far[::4] = 0.0  # dead lanes
-    b_ref = traverse_anyhit(o, d, bvh, t_far)
     chunks = {
         q: [tw.WideChunk.from_host(c, "cpu")
             for c in tw.build_chunked_wide(port_tris(tris), chunk_tris=CHUNK, quant=q)]
         for q in (False, True)
     }
     return {
-        "tris": tris, "chunks": chunks,
+        "tris": tris, "chunks": chunks, "o_np": np.array(o), "d_np": np.array(d),
         "o": torch.from_numpy(np.array(o)), "d": torch.from_numpy(np.array(d)),
-        "t_far": torch.from_numpy(t_far), "t_ref": np.asarray(t_ref),
-        "p_ref": np.asarray(p_ref), "b_ref": np.asarray(b_ref),
+        "t_far": torch.from_numpy(t_far),
     }
+
+
+@functools.lru_cache(maxsize=None)
+def blink_reference() -> dict:
+    """blink's flat-BVH hits on shared_case: t_ref, p_ref and b_ref (one
+    compile of blink's walks a process)."""
+    c = shared_case()
+    bvh = build_flat_bvh(c["tris"])
+    t_ref, p_ref = traverse_closest(c["o_np"], c["d_np"], bvh)
+    b_ref = traverse_anyhit(c["o_np"], c["d_np"], bvh, c["t_far"].numpy())
+    return {"t_ref": np.asarray(t_ref), "p_ref": np.asarray(p_ref), "b_ref": np.asarray(b_ref)}
+
+
+@pytest.fixture(scope="module")
+def case():
+    return shared_case()
 
 
 @pytest.mark.parametrize("quant", [False, True])
@@ -112,93 +131,6 @@ def test_unpadded_split_free_tables_match_reference(case, quant):
     plain = tw.build_chunked_wide(port_tris(case["tris"]), chunk_tris=CHUNK, wide_leaf=16,
                                   uniform=False, quant=quant)
     assert leaf_children(port) > leaf_children(plain)  # finer leaves in free slots
-
-
-@pytest.mark.parametrize("quant", [False, True], ids=["f32", "quant"])
-@pytest.mark.parametrize("mode", tw.LEAF_MODES)
-def test_leaf_mode_walks_match_reference(case, quant, mode):
-    """Each schedule's plain walk finds blink's hits and group's, bit for
-    bit; skip finds none."""
-    chunks, o, d, tf = case["chunks"][quant], case["o"], case["d"], case["t_far"]
-    t, prim, pops, tests = tw.closest_wide_plain(o, d, chunks, counts=True, leaf_mode=mode)
-    blocked, a_pops, a_tests = tw.anyhit_wide_plain(o, d, chunks, tf, counts=True,
-                                                    leaf_mode=mode)
-    assert (pops >= len(chunks)).all()
-    if mode == "skip":
-        assert (prim == -1).all() and (t == 1e30).all() and not blocked.any()
-        assert (tests == 0).all() and (a_tests == 0).all()
-        return
-    assert (case["p_ref"] >= 0).sum() >= 5 and 0 < case["b_ref"].sum() < N_RAYS
-    np.testing.assert_array_equal(prim.numpy(), case["p_ref"])
-    np.testing.assert_allclose(t.numpy(), case["t_ref"], rtol=1e-6, atol=1e-6)
-    np.testing.assert_array_equal(blocked.numpy(), case["b_ref"])
-    t_g, prim_g, pops_g, tests_g = tw.closest_wide_plain(o, d, chunks, counts=True,
-                                                         leaf_mode="group")
-    assert torch.equal(t, t_g) and torch.equal(prim, prim_g)
-    assert torch.equal(blocked, tw.anyhit_wide_plain(o, d, chunks, tf, leaf_mode="group"))
-    if mode == "row":  # the same leaves, in the same order
-        assert torch.equal(pops, pops_g) and torch.equal(tests, tests_g)
-    else:  # stream prunes with a best t one leaf late
-        assert (pops >= pops_g).all() and (tests >= tests_g).all()
-
-
-@pytest.mark.parametrize("mode", ["group", "row"])
-def test_seen_marks_count_one_rays_reads(case, mode):
-    """For one ray, the marks are its distinct reads: every node popped
-    and every slot (group) or batch (row) tested, once."""
-    chunks = case["chunks"][True]
-    hit = int(np.nonzero(case["p_ref"] >= 0)[0][0])
-    o, d = case["o"][hit:hit + 1], case["d"][hit:hit + 1]
-    seen = []
-    _, prim, pops, tests = tw.closest_wide_plain(o, d, chunks, counts=True,
-                                                 leaf_mode=mode, seen=seen)
-    assert prim.item() == case["p_ref"][hit]
-    assert sum(int(n.sum()) for n, _ in seen) == pops.item()
-    leaf_rows = sum(int(s.sum()) for _, s in seen)
-    assert leaf_rows == tests.item() if mode == "group" else 0 < leaf_rows <= tests.item()
-
-
-@pytest.mark.parametrize(
-    "env, tables, want",
-    [("row", True, "row"), ("stream", True, "stream"), ("row", False, "group"),
-     ("group", True, "group"), (None, True, "group"), ("fast", True, "group")],
-)
-def test_default_leaf_mode_honours_env(case, monkeypatch, env, tables, want):
-    """BLINK_LEAF_MODE picks row or stream only for chunks with row tables
-    (else blink's documented fallback to group); unset or unknown: group."""
-    if env is None:
-        monkeypatch.delenv("BLINK_LEAF_MODE", raising=False)
-    else:
-        monkeypatch.setenv("BLINK_LEAF_MODE", env)
-    chunk = case["chunks"][True][0]
-    if not tables:
-        chunk = tw.WideChunk(chunk.child, chunk.nbox, chunk.perm, chunk.tri,
-                             chunk.tri_id, chunk.max_stack)
-    assert tw._default_leaf_mode(chunk) == want
-    assert tw._default_leaf_mode(chunk, any_hit=True) == want
-
-
-def test_modes_without_tables_raise(case, monkeypatch):
-    """An explicit row or stream on chunks without row tables raises, as
-    blink does; under BLINK_LEAF_MODE=row they walk group. Unknown modes
-    and SBVH chunks raise too."""
-    tris = _random_tris(300, 53)
-    chunks = [tw.WideChunk.from_host(c, "cpu") for c in
-              tw.build_chunked_wide(port_tris(tris), quant=True, row_tables=False)]
-    o, d = case["o"], case["d"]
-    for mode in ("row", "stream"):
-        with pytest.raises(ValueError, match="row_tables"):
-            tw.traverse_closest_wide(o, d, chunks, leaf_mode=mode)
-        with pytest.raises(ValueError, match="row_tables"):
-            tw.traverse_anyhit_wide(o, d, chunks, case["t_far"], leaf_mode=mode)
-    with pytest.raises(ValueError, match="leaf_mode"):
-        tw.traverse_closest_wide(o, d, chunks, leaf_mode="fast")
-    monkeypatch.setenv("BLINK_LEAF_MODE", "row")
-    t, prim = tw.traverse_closest_wide(o, d, chunks)
-    t_g, prim_g = tw.traverse_closest_wide(o, d, chunks, leaf_mode="group")
-    assert torch.equal(t, t_g) and torch.equal(prim, prim_g)
-    with pytest.raises(NotImplementedError):
-        tw.build_chunked_wide(port_tris(tris), spatial=True)
 
 
 @pytest.mark.parametrize("quant", [False, True])
@@ -242,27 +174,3 @@ def test_render_through_row_table_backend(monkeypatch):
     assert images["group"].abs().sum() > 0
     assert torch.equal(images["row"], images["group"])
     assert torch.equal(images["stream"], images["group"])
-
-
-@pytest.mark.gpu
-def test_wide_variants_match_plain_on_gpu(case):
-    """Every kernel variant (closest and any hit, f32 and quantized boxes,
-    the four leaf schedules) against its plain version on the card, bit
-    for bit, one launch per chunk under its own LAUNCHES name."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    o, d, tf = case["o"].cuda(), case["d"].cuda(), case["t_far"].cuda()
-    for quant in (False, True):
-        chunks = [tw.WideChunk.from_host(c, "cuda") for c in tw.build_chunked_wide(
-            port_tris(case["tris"]), chunk_tris=CHUNK, quant=quant)]
-        for mode in tw.LEAF_MODES:
-            before = dict(tw.LAUNCHES)
-            t, prim = tw.traverse_closest_wide(o, d, chunks, leaf_mode=mode)
-            t_p, prim_p = tw.closest_wide_plain(o, d, chunks, leaf_mode=mode)
-            assert torch.equal(t, t_p) and torch.equal(prim, prim_p), (quant, mode)
-            blocked = tw.traverse_anyhit_wide(o, d, chunks, tf, leaf_mode=mode)
-            assert torch.equal(blocked, tw.anyhit_wide_plain(o, d, chunks, tf,
-                                                             leaf_mode=mode)), (quant, mode)
-            for any_hit in (False, True):
-                name = tw.launch_name(any_hit, mode, quant)
-                assert tw.LAUNCHES[name] - before[name] == len(chunks), name
