@@ -31,6 +31,26 @@ Phases (each asserts; any failure exits non-zero):
                 calls' times, the launches the caller made around the
                 kernel before (the merge, the table's torch.cat), and the
                 kernel's registers and resident warps an SM;
+  4b. soft    — config 3 with soft_sigma 0.15, deterministic: one soft
+                render's launches as li_direct_soft implies them
+                (soft_launches: 2 closest hits, 6 shadow tests, 1
+                sphere_merge, 4 sphere_pass), every recorded walk and
+                sphere call bit for bit to its plain version, the image
+                equal to the hard one and to the numpy oracle
+                (blink_torch.ref, rendered in a process of its own since
+                the start) by the goldens' rule; the soft sphere_center
+                gradient on the card against the CPU's; soft and hard
+                fwd+bwd times; the position fit of tests/test_fit.py (120
+                Adam steps) at 48x48 to blink's bounds and at 256x256
+                (both ratios must fall);
+  4c. softmesh — config 2's bunny at 512x512, 1 spp, deterministic,
+                soft_sigma 1.0 and soft_mesh: the launches (2 closest
+                hits, 12 shadow tests), both closest hits' rays in
+                row-major pixel order, the image equal to the hard one,
+                every walk bit for bit; a finite, non-zero tri_verts
+                gradient; soft and hard fwd+bwd times; the mesh-offset
+                recovery of tests/test_fit.py (bunny_scene(2), 48x48, 50
+                steps, the backend built anew each step) to blink's bounds;
   5. parity   — on the 1M-triangle Sponza scene with the production BVH,
                 the closest-hit and any-hit kernels against their plain
                 versions on 65,536 primary rays (every 16th of the
@@ -129,6 +149,16 @@ Phases (each asserts; any failure exits non-zero):
                 efficiency; the image against the wide backend's, the bunny
                 golden through bvh, frame and walk times, and the skip-link
                 walks' registers, spills and resident warps an SM;
+ 13b. bvhvariants — the instanced hall (sponza_scene_instanced, 200,000
+                triangles): SBVH chunks (build_chunked_wide(spatial=True),
+                the production constants; build seconds) through both wide
+                kernels on 512x512 primary rays and their shadow rays, bit
+                for bit to the plain walks, and against the object-split
+                chunks (t identical, prim ties counted, the same blocked
+                flags), with both layouts' times; the TLAS probe
+                (blink_torch.benchmarks.tlas_probe.run) on the card at
+                65,536 rays, the two-level walk's hits against the flat
+                walk's (hits equal, t within 1e-5), its JSON line printed;
  14. shard    — a one-rank NCCL group: scene-sharded traversal of the
                 1024x1024 frame's primary rays and their shadow rays over
                 build_sharded_chunks(tris, 1) (9 padded chunks), its two
@@ -148,7 +178,7 @@ Phases (each asserts; any failure exits non-zero):
                 its bound over live lanes. The skip-link rows of the
                 kernels line gain path_launches, path_ms and path_bound_ms.
 Each main path is driven with the launch counts set to 0 just before it
-and read just after. The second-to-last line is {"kernels": [...]}, the
+and read just after; each phase's seconds are logged. The second-to-last line is {"kernels": [...]}, the
 last {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
@@ -158,7 +188,8 @@ import os
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -2044,6 +2075,317 @@ def phase_dist(scene, cfg, backend, dev) -> dict:
     return path
 
 
+# ------------------------------------------- soft gradients and the BVH variants
+
+
+def oracle_image(size: int) -> np.ndarray:
+    """The numpy oracle's Cornell (the fit preset's scene) at size x size,
+    deterministic; main computes it in a process of its own beside the
+    phases before [soft]."""
+    from blink_torch.ref import ref_render
+    from blink_torch.scene.builders import cornell_box
+
+    return ref_render(cornell_box(), size, size)
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def soft_launches(scene, n_chunks: int, mesh: bool) -> dict:
+    """The launches of one deterministic render through li_direct_soft
+    (diff/soft.py), L lights and C chunks: its li_direct is a closest hit
+    (C walks, a sphere_merge with spheres) and a shadow test a light (C
+    walks, a sphere_pass with spheres); with spheres, the background's
+    li_direct on the scene without spheres (no sphere launch) and the
+    sphere-soft shading's shadow tests; with `mesh`, one more closest hit
+    (backend.intersect) and the shadow tests of 5 candidate layers."""
+    n_l, sph = scene.n_lights, scene.n_spheres > 0
+    full = n_l * (1 + sph + 5 * mesh)  # shadow tests on the whole scene
+    counts = {"wide_closest": (1 + sph + mesh) * n_chunks,
+              "wide_anyhit": (full + n_l * sph) * n_chunks}
+    if sph:
+        counts.update(sphere_merge=1 + mesh, sphere_pass=full)
+    return counts
+
+
+def hold_recorded(rec, chunks, tag: str) -> None:
+    """Every recorded wide-walk and sphere call held bit for bit to its
+    plain version on its own inputs."""
+    for o, d, t_far, (t, prim) in rec.calls["wide_closest"]:
+        t_p, p_p = tw.closest_wide_plain(o, d, chunks, t_far)
+        assert torch.equal(t, t_p) and torch.equal(prim, p_p), tag
+    for o, d, t_far, blocked in rec.calls["wide_anyhit"]:
+        assert torch.equal(blocked, tw.anyhit_wide_plain(o, d, chunks, t_far)), tag
+    for name, plain in (("sphere_pass", ks.sphere_pass_plain),
+                        ("sphere_merge", ks.sphere_merge_plain)):
+        for o, d, c, r, t_min, t_in, out in rec.calls[name]:
+            ref = plain(o, d, c, r, t_min, *(t_in if name == "sphere_merge" else (t_in,)))
+            assert all(torch.equal(x, y) for x, y in zip(out, ref)), (tag, name)
+    log(f"[{tag}] " + ", ".join(f"{len(v)} {k}" for k, v in rec.calls.items() if v)
+        + " calls (of " + ", ".join(f"{v[0][0].shape[0]}" for v in rec.calls.values() if v)
+        + " rays) identical to the plain versions")
+
+
+def position_fit(scene, cfg, backend, dev, steps: int):
+    """tests/test_fit.py's position recovery through `cfg`: centres off by
+    0.08 x normal noise (a torch.Generator seeded 11), `steps` Adam steps at
+    lr 1e-2 on sphere_center. Returns (loss ratio, centre error ratio)."""
+    target = render(scene, cfg.override(soft_sigma=0.0), device=dev, backend=backend)
+    noise = 0.08 * torch.randn(scene.spheres.center.shape,
+                               generator=torch.Generator().manual_seed(11))
+    scene0 = scene.replace(spheres=scene.spheres.replace(
+        center=scene.spheres.center + noise.to(dev)))
+    fitted, hist = fit(scene0, target, cfg,
+                       FitConfig(steps=steps, lr=1e-2, optimize=("sphere_center",),
+                                 log_path=os.devnull), device=dev, backend=backend)
+    err0 = float(noise.abs().mean())
+    err1 = float((fitted.spheres.center - scene.spheres.center).abs().mean())
+    return hist[-1] / hist[0], err1 / err0
+
+
+def phase_soft(dev, oracle, size: int = 256, fit_size: int = 48, steps: int = 120) -> dict:
+    """Config 3 with soft_sigma 0.15 (Cornell through backend 'pallas',
+    deterministic): one soft render's launches (soft_launches) and its
+    image equal to the hard one and to the numpy oracle (`oracle`, a
+    future of oracle_image(size)) by the goldens' rule, every recorded
+    call bit for bit; the soft sphere_center gradient on the card against
+    the CPU's; soft and hard fwd+bwd times; the position fit at fit_size
+    to blink's bounds and at `size` (both ratios must fall)."""
+    cfg = get_config("fit").override(backend="pallas", width=size, height=size,
+                                     deterministic=True)
+    cfg_soft = cfg.override(soft_sigma=0.15)
+    scene = build_scene(cfg).to(dev)
+    backend = kapi.make_backend(cfg.backend, scene)
+    target = render(scene, cfg, device=dev, backend=backend)
+    reset_launches()
+    with Recorder() as rec:
+        img = render(scene, cfg_soft, device=dev, backend=backend)
+        torch.cuda.synchronize()
+    counts = launches()
+    want = only(**soft_launches(scene, len(backend.chunks), mesh=False))
+    log(f"[soft] {size}x{size} soft_sigma 0.15: launches {nonzero(counts)} ({scene.n_lights} lights, "
+        f"{len(backend.chunks)} chunk)")
+    assert counts == want, (counts, want)
+    assert torch.equal(img, target)
+    hold_recorded(rec, backend.chunks, "soft")
+    ref = oracle.result()
+    img = img.cpu().numpy()
+    share = float(np.isclose(img, ref, atol=1e-4).mean())
+    mean_err = float(np.abs(img - ref).mean())
+    log(f"[soft] image equal to the hard one; against the numpy oracle: {share:.6f} of texels "
+        f"within 1e-4, mean |diff| {mean_err:.3g}")
+    assert share > 0.999 and mean_err < 1e-4, (share, mean_err)
+
+    names = ("sphere_center",)
+    noise = 0.08 * torch.randn(scene.spheres.center.shape,
+                               generator=torch.Generator().manual_seed(11))
+    scene0 = scene.replace(spheres=scene.spheres.replace(
+        center=scene.spheres.center + noise.to(dev)))
+    _, g = render_grad(scene0, cfg_soft, target, names, device=dev, backend=backend)
+    _, g_h = render_grad(scene0, cfg, target, names, device=dev, backend=backend)
+    _, g_c = render_grad(scene0.to("cpu"), cfg_soft, target.cpu(), names, device="cpu")
+    a, b, h = g["sphere_center"].cpu(), g_c["sphere_center"], g_h["sphere_center"].cpu()
+    scale = b.abs().max().item()
+    log(f"[soft] grad sphere_center: card vs CPU max|diff| {(a - b).abs().max().item():.3g}, "
+        f"max|g| {scale:.3g}; soft vs hard max|diff| {(a - h).abs().max().item():.3g}")
+    assert torch.isfinite(a).all() and scale > 0
+    assert torch.allclose(a, b, rtol=GRAD_RTOL, atol=GRAD_ATOL_SHARE * scale)
+
+    t_s, t_h = timed_in_turns([
+        lambda: render_grad(scene0, cfg_soft, target, names, device=dev, backend=backend),
+        lambda: render_grad(scene0, cfg, target, names, device=dev, backend=backend)])
+    ms_s, ms_h = sum(t_s) / len(t_s), sum(t_h) / len(t_h)
+    log(f"[soft] fwd+bwd of sphere_center at {size}x{size}: soft {[round(x, 3) for x in t_s]} "
+        f"mean {ms_s:.3f} ms, hard {[round(x, 3) for x in t_h]} mean {ms_h:.3f} ms, "
+        f"soft/hard {ms_s / ms_h:.3f}")
+
+    ratios = {}
+    for s in (fit_size, size):
+        c = cfg_soft.override(width=s, height=s)
+        t0 = time.perf_counter()
+        ratios[s] = position_fit(scene, c, backend, dev, steps)
+        log(f"[soft] position fit {s}x{s}, {steps} steps: loss {ratios[s][0]:.4f}x, centre "
+            f"error {ratios[s][1]:.4f}x of the start, {time.perf_counter() - t0:.1f} s")
+    assert ratios[fit_size][0] < 0.45 and ratios[fit_size][1] < 0.6, ratios
+    assert ratios[size][0] < 1.0 and ratios[size][1] < 1.0, ratios
+    return {"soft_ms": ms_s, "hard_ms": ms_h, "ratios": ratios, "launches": counts}
+
+
+def mesh_offset_fit(dev, size: int = 48, steps: int = 50):
+    """tests/test_fit.py's mesh-offset recovery on bunny_scene(2) through
+    backend 'pallas': a rigid offset of the icosphere's vertices, 50 Adam
+    steps at lr 8e-3 on mesh-soft gradients; the backend is built anew from
+    each step's vertices (the brute backend of the test reads them live).
+    Returns (offset norm ratio, loss ratio)."""
+    from blink_torch.api import merge_params
+    from blink_torch.render.api import render_image
+    from blink_torch.scene.builders import bunny_scene
+
+    scene = bunny_scene(2).to(dev)
+    cfg = get_config("bunny").override(width=size, height=size, spp=1, deterministic=True,
+                                       backend="pallas")
+    cfg_soft = cfg.override(soft_sigma=1.0, soft_mesh=True)
+    with torch.no_grad():
+        target = render_image(scene, cfg, kapi.make_backend("pallas", scene))
+    p0 = scene.triangles.verts
+    rows = torch.zeros((p0.shape[0], 1), device=dev)
+    rows[8:] = 1.0  # the icosphere's rows
+    p = torch.tensor([0.05, -0.03, 0.0], device=dev, requires_grad=True)
+    err0 = torch.linalg.vector_norm(p).item()
+    opt = torch.optim.Adam([p], lr=8e-3)
+    losses = []
+    for _ in range(steps):
+        opt.zero_grad()
+        s = merge_params(scene, {"tri_verts": p0 + rows * p[None, :]})
+        backend = kapi.make_backend("pallas", s.replace(triangles=s.triangles.replace(
+            verts=s.triangles.verts.detach())))
+        loss = torch.mean((render_image(s, cfg_soft, backend) - target) ** 2)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    return torch.linalg.vector_norm(p).item() / err0, losses[-1] / losses[0]
+
+
+def phase_softmesh(dev, size: int = 512, fit_size: int = 48) -> dict:
+    """Config 2's bunny (81,924 triangles) at size x size, 1 spp,
+    deterministic, soft_sigma 1.0 with soft_mesh, through 'pallas': the
+    launches, every closest hit's rays in row-major pixel order, the image
+    equal to the hard one, every recorded walk bit for bit; a finite,
+    non-zero tri_verts gradient; soft and hard fwd+bwd times; the
+    mesh-offset recovery at fit_size to blink's bounds."""
+    cfg = get_config("bunny").override(width=size, height=size, spp=1, deterministic=True,
+                                       backend="pallas")
+    cfg_soft = cfg.override(soft_sigma=1.0, soft_mesh=True)
+    scene = build_scene(cfg).to(dev)
+    assert scene.n_triangles == 81_924, scene.n_triangles
+    backend = kapi.make_backend(cfg.backend, scene)
+    img_h = render(scene, cfg, device=dev, backend=backend)
+    reset_launches()
+    with Recorder() as rec:
+        img = render(scene, cfg_soft, device=dev, backend=backend)
+        torch.cuda.synchronize()
+    counts = launches()
+    want = only(**soft_launches(scene, len(backend.chunks), mesh=True))
+    log(f"[softmesh] bunny {scene.n_triangles} triangles {size}x{size} soft_sigma 1.0 "
+        f"soft_mesh: launches {nonzero(counts)} ({scene.n_lights} lights, {len(backend.chunks)} chunk)")
+    assert counts == want, (counts, want)
+    assert torch.equal(img, img_h)
+    _, d_rm, _ = generate_rays(scene.camera, size, size, sampler.seed_key(cfg.seed, dev), 0,
+                               False)
+    assert all(torch.equal(d, d_rm) for _, d, _, _ in rec.calls["wide_closest"])
+    log(f"[softmesh] image equal to the hard one; the {len(rec.calls['wide_closest'])} closest "
+        f"hits' rays in row-major pixel order")
+    hold_recorded(rec, backend.chunks, "softmesh")
+
+    target = torch.zeros_like(img_h)
+    names = ("tri_verts",)
+    _, g = render_grad(scene, cfg_soft, target, names, device=dev, backend=backend)
+    _, g_h = render_grad(scene, cfg, target, names, device=dev, backend=backend)
+    gv, hv = g["tri_verts"], g_h["tri_verts"]
+    moved = int((gv.abs().sum(1) > 0).sum())
+    log(f"[softmesh] grad tri_verts: max|g| {gv.abs().max().item():.3g}, {moved} of "
+        f"{gv.shape[0]} vertices non-zero, soft vs hard max|diff| "
+        f"{(gv - hv).abs().max().item():.3g}")
+    assert torch.isfinite(gv).all() and moved > 0
+    t_s, t_h = timed_in_turns([
+        lambda: render_grad(scene, cfg_soft, target, names, device=dev, backend=backend),
+        lambda: render_grad(scene, cfg, target, names, device=dev, backend=backend)], reps=3)
+    ms_s, ms_h = sum(t_s) / len(t_s), sum(t_h) / len(t_h)
+    log(f"[softmesh] fwd+bwd of tri_verts at {size}x{size}: soft {[round(x, 3) for x in t_s]} "
+        f"mean {ms_s:.3f} ms, hard {[round(x, 3) for x in t_h]} mean {ms_h:.3f} ms, "
+        f"soft/hard {ms_s / ms_h:.3f}")
+    t0 = time.perf_counter()
+    off, loss = mesh_offset_fit(dev, fit_size)
+    log(f"[softmesh] mesh-offset fit {fit_size}x{fit_size}, 50 steps: offset {off:.4f}x, "
+        f"loss {loss:.4f}x of the start, {time.perf_counter() - t0:.1f} s")
+    assert off < 0.5 and loss < 0.25, (off, loss)
+    return {"soft_ms": ms_s, "hard_ms": ms_h, "offset": off, "loss": loss, "launches": counts}
+
+
+def phase_bvhvariants(dev, n_tris: int = 200_000, size: int = 512, probe_rays: int = 65_536,
+                      probe_reps: int = 1) -> dict:
+    """The instanced hall (sponza_scene_instanced) at the probe's size: SBVH
+    chunks (build_chunked_wide(spatial=True), the production constants)
+    through the wide kernels on size x size primary rays and their shadow
+    rays, bit for bit to the plain walks, and against the object-split
+    chunks (t equal, prim equal but for counted exact-t ties); then the
+    TLAS probe's run on the card, its two-level hits against the flat
+    walk's (hits equal, t within 1e-5)."""
+    from blink_torch.benchmarks import tlas_probe
+    from blink_torch.scene.builders import sponza_scene_instanced
+
+    _, insts, _, scene = sponza_scene_instanced(n_tris)
+    scene = scene.to(dev)
+    cam = scene.camera.origin.cpu().numpy().astype(np.float32)
+    t0 = time.perf_counter()
+    host = tw.build_chunked_wide(scene.triangles, chunk_tris=340_000, wide_leaf=44, quant=True,
+                                 row_tables=False, order_from=cam, spatial=True)
+    t1 = time.perf_counter()
+    backend = kapi.make_backend("pallas", scene)
+    t2 = time.perf_counter()
+    sbvh_s = t1 - t0
+    spatial = [tw.WideChunk.from_host(c, dev) for c in host]
+    refs = sum(int((c.tri_id >= 0).sum()) for c in host)
+    log(f"[bvhvariants] instanced hall {scene.n_triangles} triangles, {len(insts)} instances: "
+        f"SBVH chunks built in {sbvh_s:.2f} s ({len(spatial)} chunk, {refs} references, "
+        f"{spatial[0].n_wide} wide nodes), object-split chunks in {t2 - t1:.2f} s "
+        f"({backend.chunks[0].n_wide} wide nodes)")
+
+    o, d = primary_rays(scene, size, dev)
+    n_s, n_o = len(spatial), len(backend.chunks)
+    reset_launches()
+    t_s, p_s = tw.traverse_closest_wide(o, d, spatial)
+    so, sd, tf = short_shadow_rays(o, d, t_s, p_s, scene)
+    b_s = tw.traverse_anyhit_wide(so, sd, spatial, tf)
+    t_o, p_o = tw.traverse_closest_wide(o, d, backend.chunks)
+    b_o = tw.traverse_anyhit_wide(so, sd, backend.chunks, tf)
+    torch.cuda.synchronize()
+    counts = launches()
+    log(f"[bvhvariants] launches {nonzero(counts)}")
+    assert counts == only(wide_closest=n_s + n_o, wide_anyhit=n_s + n_o), counts
+    t_p, p_p = tw.closest_wide_plain(o, d, spatial)
+    assert torch.equal(t_s, t_p) and torch.equal(p_s, p_p)
+    assert torch.equal(b_s, tw.anyhit_wide_plain(so, sd, spatial, tf))
+    ties = int((p_s != p_o).sum())
+    log(f"[bvhvariants] SBVH walks on {o.shape[0]} primary rays (hit "
+        f"{float((p_s >= 0).float().mean()):.4f}) and their shadow rays (blocked "
+        f"{float(b_s.float().mean()):.4f}) identical to the plain walks; against the "
+        f"object-split chunks: t identical {torch.equal(t_s, t_o)}, prim ties {ties}, blocked "
+        f"flags differing {int((b_s != b_o).sum())}")
+    assert torch.equal(t_s, t_o)
+    assert torch.equal(b_s, b_o)
+    times = timed_in_turns([lambda: tw.traverse_closest_wide(o, d, spatial),
+                            lambda: tw.traverse_closest_wide(o, d, backend.chunks),
+                            lambda: tw.traverse_anyhit_wide(so, sd, spatial, tf),
+                            lambda: tw.traverse_anyhit_wide(so, sd, backend.chunks, tf)])
+    ms = [sum(t) / len(t) for t in times]
+    log(f"[bvhvariants] ms a call (closest SBVH, closest object, any hit SBVH, any hit "
+        f"object): {[round(x, 4) for x in ms]}")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    out, (t_fl, p_fl), (t_tl, p_tl) = tlas_probe.run(n_tris, probe_rays, probe_reps, dev)
+    torch.cuda.synchronize()
+    counts = launches()
+    log(f"[bvhvariants] probe {time.perf_counter() - t0:.1f} s, launches {nonzero(counts)}")
+    assert counts == only(wide_closest=(1 + probe_reps) * out["flat"]["n_chunks"]), counts
+    hit = p_fl >= 0
+    assert torch.equal(hit, p_tl >= 0)
+    assert torch.allclose(t_tl[hit], t_fl[hit], rtol=1e-5, atol=1e-5)
+    assert out["parity_exact_hits"]
+    log("[bvhvariants] probe " + json.dumps(out))
+    return {"sbvh_build_s": sbvh_s, "ms": ms, "probe": out}
+
+
+def timed_phase(tag: str, fn, *args, **kw):
+    """fn(*args, **kw), its seconds logged under [tag]."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    log(f"[{tag}] phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2056,11 +2398,19 @@ def main() -> int:
     log(f"[device] {torch.cuda.get_device_name(0)} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
-    phase_build()
-    sphere_err, big = phase_sphere_parity(dev)
-    phase_cornell(dev)
-    sphere_rows = phase_config3(dev, big)
-    del big
+    # The numpy oracle of [soft] renders in a process of its own meanwhile.
+    oracle_pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        oracle = oracle_pool.submit(oracle_image, 256)
+        timed_phase("build", phase_build)
+        sphere_err, big = timed_phase("sphere", phase_sphere_parity, dev)
+        timed_phase("cornell", phase_cornell, dev)
+        sphere_rows = timed_phase("config3", phase_config3, dev, big)
+        del big
+        timed_phase("soft", phase_soft, dev, oracle)
+    finally:
+        oracle_pool.shutdown(cancel_futures=True)
+    timed_phase("softmesh", phase_softmesh, dev)
     for row in sphere_rows:
         row["max_abs_err"] = max(row["max_abs_err"], sphere_err)
 
@@ -2075,13 +2425,13 @@ def main() -> int:
         f"{scene.n_spheres} spheres: scene {t1 - t0:.1f} s, BVH {t2 - t1:.1f} s, "
         f"{len(backend.chunks)} chunks, max_stack {backend.chunks[0].max_stack}")
 
-    errs = phase_parity(scene, backend, dev)
-    phase_golden(dev)
-    rows, frame_ms = phase_frame(scene, backend, cfg, dev, errs)
+    errs = timed_phase("parity", phase_parity, scene, backend, dev)
+    timed_phase("golden", phase_golden, dev)
+    rows, frame_ms = timed_phase("frame", phase_frame, scene, backend, cfg, dev, errs)
     profile(lambda: render(scene, cfg, device=dev, backend=backend), "frame", frame_ms)
-    fwd_bwd = phase_fwd_bwd(scene, backend, dev)
-    bench = phase_bench(scene, backend, dev)
-    config4, config4_ms = phase_config4(scene, backend, dev)
+    fwd_bwd = timed_phase("fwd+bwd", phase_fwd_bwd, scene, backend, dev)
+    bench = timed_phase("bench", phase_bench, scene, backend, dev)
+    config4, config4_ms = timed_phase("config4", phase_config4, scene, backend, dev)
     fb, c4 = bench["detail"]["fwd_bwd"], bench["detail"]["config4"]
     log(f"[bench] the harness against this script's own times (ms): fwd+bwd geometry "
         f"{fb['wall_s'] * 1e3:.3f} against {fwd_bwd['geometry_ms']:.3f}, materials "
@@ -2093,20 +2443,21 @@ def main() -> int:
         row["max_abs_err"] = max(row["max_abs_err"], c4["err"])
         row.update(config4_launches=c4["launches"], config4_ms=c4["ms"],
                    config4_bound_ms=c4["bound_ms"])
-    phase_config5(scene, backend, dev)
+    timed_phase("config5", phase_config5, scene, backend, dev)
     rows += sphere_rows
-    leafmode_rows = phase_leafmode(scene, backend, cfg, dev)
+    leafmode_rows = timed_phase("leafmode", phase_leafmode, scene, backend, cfg, dev)
 
-    binary_rows = phase_binary(scene, backend, dev)
-    skip_rows, config2 = phase_config2(dev)
+    binary_rows = timed_phase("binary", phase_binary, scene, backend, dev)
+    skip_rows, config2 = timed_phase("config2", phase_config2, dev)
+    timed_phase("bvhvariants", phase_bvhvariants, dev)
     rows += skip_rows + binary_rows + leafmode_rows
     from blink_torch.dist import mesh
 
     torch.cuda.set_device(dev)
     mesh.init_single_rank("nccl")
     try:
-        shard_errs, shard = phase_shard(scene, backend, dev)
-        path = phase_dist(*config2, dev)
+        shard_errs, shard = timed_phase("shard", phase_shard, scene, backend, dev)
+        path = timed_phase("dist", phase_dist, *config2, dev)
     finally:
         mesh.close()
 

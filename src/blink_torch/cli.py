@@ -22,6 +22,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--scene", default=None, help="cornell|bunny|sponza|obj:<path>")
     p.add_argument("--sponza-tris", dest="sponza_tris", type=int, default=None)
     p.add_argument("--bunny-subdiv", dest="bunny_subdiv", type=int, default=None)
+    p.add_argument("--soft-sigma", dest="soft_sigma", type=float, default=None,
+                   help="soft-visibility gradient band (0 = hard)")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA device; 'cpu' for "
                         "the plain torch path)")
@@ -42,6 +44,7 @@ def _load_cfg(args: argparse.Namespace):
         scene=args.scene,
         sponza_tris=args.sponza_tris,
         bunny_subdiv=args.bunny_subdiv,
+        soft_sigma=args.soft_sigma,
     )
 
 

@@ -43,10 +43,15 @@ class RenderConfig:
     # skip their walks through the dead-lane cull. Ignored in
     # deterministic mode (goldens and FD need noise-free renders).
     rr_start: int = 0
-    # Fields read by parts of `blink` this package has not ported yet
-    # (ROADMAP.md queue 1); kept so config JSON round-trips.
+    # Soft-silhouette gradients (diff.soft): 0 = hard, fixed-topology
+    # gradients; > 0 = the soft estimator's band width (sphere silhouettes
+    # in units of disc / r^2). The image does not change.
     soft_sigma: float = 0.0
+    # With soft_sigma > 0, mesh silhouettes too (soft_sigma in pixels);
+    # the rays then run in row-major pixel order (render.api).
     soft_mesh: bool = False
+    # Fields that no code of either package reads; kept so config JSON
+    # round-trips.
     ray_chunk: int = 0
     donate: bool = True
 

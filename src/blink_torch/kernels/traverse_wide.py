@@ -40,6 +40,7 @@ import torch
 
 from blink_torch.bvh.build import _morton3
 from blink_torch.bvh.sah import build_sah_bvh
+from blink_torch.bvh.sbvh import build_sbvh
 from blink_torch.bvh.wide import WIDE_STACK_CAP, WideBVH, build_wide
 from blink_torch.kernels._build import check_arg
 from blink_torch.kernels.triangle import triangle_t
@@ -61,17 +62,19 @@ _PLAIN_BATCH = {"cpu": 1 << 15, "cuda": 1 << 18}
 
 
 def _chunked_sah_trees(verts, idx, chunk_tris: int, order_from=None,
-                       leaf_size: int = SAH_LEAF):
+                       leaf_size: int = SAH_LEAF, spatial: bool = False):
     """Morton-partition triangles into chunks of `chunk_tris`; one SAH
-    FlatBVH (leaves of `leaf_size`) per chunk with global triangle ids.
+    FlatBVH (leaves of `leaf_size`) per chunk with global triangle ids,
+    an SBVH with `spatial` (bvh.sbvh: references split at bin planes).
     With `order_from` (a point, the camera origin at build time) the chunks
     are sorted near to far from it: the threaded best t then prunes later
     chunks for primary rays."""
+    builder = build_sbvh if spatial else build_sah_bvh
     v = np.asarray(verts, np.float32)
     idx = np.asarray(idx, np.int64)
     T = idx.shape[0]
     if T <= chunk_tris:
-        return [build_sah_bvh(v, idx, leaf_size)]
+        return [builder(v, idx, leaf_size)]
     cent = (v[idx[:, 0]] + v[idx[:, 1]] + v[idx[:, 2]]) / 3.0
     lo = cent.min(axis=0)
     hi = cent.max(axis=0)
@@ -83,7 +86,7 @@ def _chunked_sah_trees(verts, idx, chunk_tris: int, order_from=None,
     dists = []
     for c in range(n_chunks):
         sel = order[c * chunk_tris : (c + 1) * chunk_tris]
-        bvh = build_sah_bvh(v, idx[sel], leaf_size)
+        bvh = builder(v, idx[sel], leaf_size)
         # Local tri ids (positions in `sel`) -> global tri ids.
         tid = bvh.tri_id
         glob = np.where(tid >= 0, sel[np.clip(tid, 0, len(sel) - 1)], -1)
@@ -137,16 +140,15 @@ def build_chunked_wide(tris, leaf_size: int = SAH_LEAF, chunk_tris: int = CHUNK_
     without them). `leaf_size` is the binary SAH leaf, `wide_leaf` the
     traversal leaf chosen at collapse time (bvh.wide.build_wide). With
     `uniform` and more than one chunk, the chunks are padded to shared
-    shapes. `spatial` (SBVH chunks) is not ported yet."""
-    if spatial:
-        raise NotImplementedError("spatial=True (SBVH chunks) is not ported yet")
+    shapes. `spatial` builds SBVH chunks (bvh.sbvh), whose leaves may share
+    a triangle."""
     verts = tris.verts.detach().cpu().numpy()
     idx = tris.idx.cpu().numpy()
     chunks = [
         build_wide(b, wide_leaf=wide_leaf, split_free=split_free,
                    block_reads=block_reads, quant=quant, row_tables=row_tables)
         for b in _chunked_sah_trees(verts, idx, chunk_tris, order_from=order_from,
-                                    leaf_size=leaf_size)
+                                    leaf_size=leaf_size, spatial=spatial)
     ]
     if uniform and len(chunks) > 1:
         chunks = pad_chunks_uniform(chunks)

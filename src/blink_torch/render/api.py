@@ -8,7 +8,9 @@ render_image packs sb samples of each pixel next to each other instead
 (tile_pixel_ids_spp), sb * H * W rays a batch. The radiance does not
 depend on the order, because every random stream is keyed by absolute
 pixel, block and sample id; only the f32 sum over samples runs in another
-order.
+order. Mesh soft silhouettes (cfg.soft_mesh) read each pixel's image
+neighbours, so under them the rays run in row-major order, one sample a
+batch.
 """
 from __future__ import annotations
 
@@ -32,14 +34,24 @@ _BLOCK_PIXELS = 8 * 128
 
 def render_rays(o, d, keys, scene: Scene, backend, integrator: str, max_depth: int = 4,
                 deterministic: bool = False, compact: bool = False,
+                soft_sigma: float = 0.0, soft_hw: "tuple[int, int] | None" = None,
                 rr_start: int = 0) -> torch.Tensor:
-    """Radiance (N, 3) for an arbitrary ray batch."""
+    """Radiance (N, 3) for an arbitrary ray batch.
+
+    soft_sigma > 0 (one-bounce integrators only): the value is unchanged,
+    the gradient is diff.soft's soft-silhouette estimator's; with soft_hw,
+    the image shape, mesh silhouettes too (rays in row-major pixel order)."""
     if integrator == "path":
         return li_path(o, d, keys, scene, backend, max_depth, deterministic, compact,
                        rr_start=rr_start)
     if integrator not in INTEGRATORS:
         raise KeyError(f"unknown integrator '{integrator}'; "
                        f"choices: {sorted([*INTEGRATORS, 'path'])}")
+    if soft_sigma > 0.0:
+        from blink_torch.diff.soft import li_direct_soft
+
+        return li_direct_soft(o, d, keys, scene, backend, deterministic, soft_sigma,
+                              hw=soft_hw)
     return INTEGRATORS[integrator](o, d, keys, scene, backend, deterministic)
 
 
@@ -145,9 +157,11 @@ def _with_shade(scene: Scene, backend):
     return backend
 
 
-def _radiance(o, d, keys, scene: Scene, cfg: RenderConfig, backend) -> torch.Tensor:
+def _radiance(o, d, keys, scene: Scene, cfg: RenderConfig, backend, soft_sigma: float = 0.0,
+              soft_hw=None) -> torch.Tensor:
     return render_rays(o, d, keys, scene, backend, cfg.integrator, cfg.max_depth,
-                       cfg.deterministic, cfg.compact, cfg.rr_start)
+                       cfg.deterministic, cfg.compact, soft_sigma=soft_sigma, soft_hw=soft_hw,
+                       rr_start=cfg.rr_start)
 
 
 def render_image(scene: Scene, cfg: RenderConfig, backend) -> torch.Tensor:
@@ -155,11 +169,15 @@ def render_image(scene: Scene, cfg: RenderConfig, backend) -> torch.Tensor:
 
     On the tiled wide backend at spp >= 4 the samples go sb at a time
     (_spp_block), H * W * sb rays a batch; else one sample a loop step, as
-    render_rows."""
+    render_rows. cfg.soft_sigma > 0 gives soft-silhouette gradients; with
+    cfg.soft_mesh too, the rays run in row-major pixel order, one sample a
+    step, since mesh silhouettes read each pixel's image neighbours."""
     h, w, spp = cfg.height, cfg.width, cfg.spp
-    sb = _spp_block(cfg, backend, _tile_shape(h, w))
+    soft_mesh = cfg.soft_mesh and cfg.soft_sigma > 0
+    sb = 1 if soft_mesh else _spp_block(cfg, backend, _tile_shape(h, w))
     if sb == 1:
-        return render_rows(scene, cfg, backend, 0, h)
+        return render_rows(scene, cfg, backend, 0, h, soft_sigma=cfg.soft_sigma,
+                           soft_mesh=soft_mesh)
     backend = _with_shade(scene, backend)
     dev = scene.device
     root = sampler.seed_key(cfg.seed, device=dev)
@@ -169,26 +187,32 @@ def render_image(scene: Scene, cfg: RenderConfig, backend) -> torch.Tensor:
     for bi in range(spp // sb):
         o, d, keys = generate_rays(scene.camera, h, w, root, sidx + bi * sb, jitter,
                                    pixel_id=pid)
-        li = _radiance(o, d, keys, scene, cfg, backend)
+        li = _radiance(o, d, keys, scene, cfg, backend, cfg.soft_sigma)
         acc = acc + li.reshape(-1, sb, 3).sum(1)
     ps = math.isqrt(_TILE_PIXELS // sb)
     gs = math.isqrt(_BLOCK_PIXELS // sb)
     return untile_image(acc / spp, h, w, ps, ps, blk=(gs, gs))
 
 
-def render_rows(scene: Scene, cfg: RenderConfig, backend, row0: int,
-                rows: int) -> torch.Tensor:
+def render_rows(scene: Scene, cfg: RenderConfig, backend, row0: int, rows: int,
+                soft_sigma: float = 0.0, soft_mesh: bool = False) -> torch.Tensor:
     """Image rows [row0, row0 + rows) of the (H, W) frame, (rows, W, 3), one
     sample a loop step. Rays are keyed by absolute pixel id, so the rows
     equal the same rows of render_image bit for bit wherever render_image
     loops sample by sample too (_spp_block 1: any backend but wide, spp
     not a multiple of 4, or H or W not a multiple of 32); else they differ
-    only by the order of the f32 sum over samples."""
+    only by the order of the f32 sum over samples.
+
+    The gradient is the hard one unless `soft_sigma` > 0 (cfg.soft_sigma
+    is not read here: the dist renders, like blink's, stay hard). With
+    `soft_mesh` the rays run in row-major order and the mesh silhouettes
+    see the block as the image."""
     backend = _with_shade(scene, backend)
     w = cfg.width
     dev = scene.device
     root = sampler.seed_key(cfg.seed, device=dev)
-    tile = _tile_shape(rows, w)
+    tile = None if soft_mesh else _tile_shape(rows, w)
+    soft_hw = (rows, w) if soft_mesh else None
     if tile is not None:
         pid = row0 * w + tile_pixel_ids(rows, w, *tile, device=dev)
     else:
@@ -198,7 +222,7 @@ def render_rows(scene: Scene, cfg: RenderConfig, backend, row0: int,
     for s in range(cfg.spp):
         o, d, keys = generate_rays(scene.camera, cfg.height, w, root, s, jitter,
                                    pixel_id=pid)
-        acc = acc + _radiance(o, d, keys, scene, cfg, backend)
+        acc = acc + _radiance(o, d, keys, scene, cfg, backend, soft_sigma, soft_hw)
     acc = acc / cfg.spp
     if tile is not None:
         return untile_image(acc, rows, w, *tile)

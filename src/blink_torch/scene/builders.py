@@ -4,6 +4,7 @@
   cornell_box   8 spheres + 2 quads, Lambertian
   bunny_scene   bunny-class icosphere mesh + floor + area light
   sponza_scene  Sponza-class colonnaded hall, ~n_tris unique triangles
+  sponza_scene_instanced  the same hall as objects plus instances
 """
 from __future__ import annotations
 
@@ -302,3 +303,90 @@ def sponza_scene(n_tris: int = 1_000_000, textured: bool = True, seed: int = 7) 
     lights = derive_lights(mats, spheres, tris)
     cam = _camera([0.0, 3.0, hall_z * 0.95], [0.0, 2.0, 0.0], fov=55.0)
     return make_scene(spheres, tris, mats, lights, textures, cam)
+
+
+def sponza_scene_instanced(n_tris: int = 1_000_000, seed: int = 7):
+    """Config 4's hall as unique objects plus instance transforms (the
+    "2-level BVH" form of sponza_scene): the hall shell (floor, walls,
+    light) and one unit icosphere per column material; an identity
+    instance of the hall and a scaled, translated icosphere instance per
+    orb. Returns (object_tris, obj_of_inst, o2w, scene), `scene` holding
+    the flattened world-space triangles (bvh.tlas.instance_scene_triangles),
+    the geometry a two-level walk sees, so the flat walks and the
+    two-level walk compare directly (benchmarks/tlas_probe.py)."""
+    from blink_torch.bvh.tlas import instance_scene_triangles
+
+    rng = np.random.default_rng(seed)
+    mats_albedo = [
+        [0.75, 0.72, 0.68],
+        [0.0, 0.0, 0.0],
+        [0.70, 0.65, 0.58],
+    ]
+    mats_emission = [[0, 0, 0], [22.0, 21.0, 19.0], [0, 0, 0]]
+    mats_tex = [-1, -1, -1]
+    n_col_mats = 6
+    for i in range(n_col_mats):
+        c = 0.35 + 0.55 * rng.random(3)
+        mats_albedo.append(list(c))
+        mats_emission.append([0, 0, 0])
+        mats_tex.append(-1)
+    mats = Materials(
+        albedo=_t(mats_albedo, F32),
+        emission=_t(mats_emission, F32),
+        texture_id=_t(mats_tex, I32),
+    )
+
+    # Object 0: the hall shell (identity instance).
+    mb = MeshBuilder()
+    hall_x, hall_y, hall_z = 20.0, 8.0, 40.0
+    mb.add_quad([-hall_x, 0, -hall_z], [hall_x, 0, -hall_z], [hall_x, 0, hall_z], [-hall_x, 0, hall_z], 0)
+    mb.add_quad([-hall_x, 0, -hall_z], [-hall_x, 0, hall_z], [-hall_x, hall_y, hall_z], [-hall_x, hall_y, -hall_z], 2)
+    mb.add_quad([hall_x, 0, hall_z], [hall_x, 0, -hall_z], [hall_x, hall_y, -hall_z], [hall_x, hall_y, hall_z], 2)
+    mb.add_quad([-hall_x, 0, -hall_z], [-hall_x, hall_y, -hall_z], [hall_x, hall_y, -hall_z], [hall_x, 0, -hall_z], 2)
+    mb.add_quad([-6, hall_y - 0.01, -12], [-6, hall_y - 0.01, 12], [6, hall_y - 0.01, 12], [6, hall_y - 0.01, -12], 1)
+    hall = mb.build()
+
+    # Objects 1..n_col_mats: a unit icosphere per column material.
+    objects = [hall]
+    for i in range(n_col_mats):
+        ob = MeshBuilder()
+        v, f, uv = icosphere(3, radius=1.0, center=(0.0, 0.0, 0.0))
+        ob.add_mesh(v, f, 3 + i, uv)
+        objects.append(ob.build())
+
+    base = hall.idx.shape[0]
+    per_orb = 20 * 4**3
+    n_orbs = max(1, (n_tris - base) // per_orb)
+    stack_h = 4
+    n_pillars = max(1, n_orbs // stack_h)
+    gx = int(np.ceil(np.sqrt(n_pillars / 2)))
+    gz = int(np.ceil(n_pillars / max(gx, 1)))
+    obj_of_inst = [0]
+    o2w = [np.concatenate([np.eye(3, dtype=F32), np.zeros((3, 1), F32)], axis=1)]
+    placed = 0
+    for pz in range(gz):
+        for px in range(gx):
+            if placed >= n_orbs:
+                break
+            x = -hall_x * 0.8 + (1.6 * hall_x * 0.8) * (px + 0.5) / gx
+            z = -hall_z * 0.9 + (1.8 * hall_z * 0.9) * (pz + 0.5) / gz
+            jx, jz = 0.25 * rng.standard_normal(2)
+            for s in range(stack_h):
+                if placed >= n_orbs:
+                    break
+                r = 0.5 - 0.06 * s + 0.05 * rng.random()
+                m = np.zeros((3, 4), F32)
+                m[:, :3] = r * np.eye(3, dtype=F32)
+                m[:, 3] = [x + jx, 0.5 + 1.0 * s, z + jz]
+                obj_of_inst.append(1 + int(rng.integers(n_col_mats)))
+                o2w.append(m)
+                placed += 1
+    obj_of_inst = np.asarray(obj_of_inst, I32)
+    o2w = np.stack(o2w)
+
+    tris = instance_scene_triangles(objects, obj_of_inst, o2w)
+    spheres = empty_spheres()
+    lights = derive_lights(mats, spheres, tris)
+    cam = _camera([0.0, 3.0, hall_z * 0.95], [0.0, 2.0, 0.0], fov=55.0)
+    scene = make_scene(spheres, tris, mats, lights, None, cam)
+    return objects, obj_of_inst, o2w, scene

@@ -58,7 +58,8 @@ def test_default_leaf_mode_honours_env(case, monkeypatch, env, tables, want):
 def test_modes_without_tables_raise(case, monkeypatch):
     """An explicit row or stream on chunks without row tables raises, as
     blink does; under BLINK_LEAF_MODE=row they walk group. Unknown modes
-    and SBVH chunks raise too."""
+    raise too. SBVH chunks (spatial=True) build and walk to the same hits
+    as the object-split chunks."""
     tris = _random_tris(300, 53)
     chunks = [tw.WideChunk.from_host(c, "cpu") for c in
               tw.build_chunked_wide(port_tris(tris), quant=True, row_tables=False)]
@@ -74,5 +75,8 @@ def test_modes_without_tables_raise(case, monkeypatch):
     t, prim = tw.traverse_closest_wide(o, d, chunks)
     t_g, prim_g = tw.traverse_closest_wide(o, d, chunks, leaf_mode="group")
     assert torch.equal(t, t_g) and torch.equal(prim, prim_g)
-    with pytest.raises(NotImplementedError):
-        tw.build_chunked_wide(port_tris(tris), spatial=True)
+    spatial = [tw.WideChunk.from_host(c, "cpu") for c in
+               tw.build_chunked_wide(port_tris(tris), quant=True, row_tables=False,
+                                     spatial=True)]
+    t_s, prim_s = tw.traverse_closest_wide(o, d, spatial)
+    assert torch.equal(t_s, t_g) and torch.equal(prim_s, prim_g)
