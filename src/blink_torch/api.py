@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from blink_torch.config import FitConfig, RenderConfig
+from blink_torch.obs.profile import span
 from blink_torch.scene.scene import Scene
 
 # Named differentiable parameter views into a Scene: name -> (getter,
@@ -176,7 +177,8 @@ def render_grad(scene: Scene, cfg: RenderConfig, target,
     target = _target(target, device)
     params = _leaf_params(scene, param_names)
     loss = loss_fn(params, scene, cfg, backend, target)
-    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    with span("backward"):
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
     return loss.detach(), {
         n: torch.zeros_like(p) if g is None else g
         for (n, p), g in zip(params.items(), grads)

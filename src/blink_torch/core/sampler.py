@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from blink_torch.obs.profile import span
+
 _M32 = 0xFFFFFFFF
 #: 2^32 * golden ratio — the Weyl increment decorrelating fold steps.
 _GOLDEN = 0x9E3779B9
@@ -65,26 +67,30 @@ def seed_key(seed: int, device=None) -> torch.Tensor:
     """The (2,) root state of `blink`'s `_seed_key(jax.random.key(seed))`:
     the key data of a threefry key is [seed >> 32, seed & 0xFFFFFFFF],
     folded in order into the zero state."""
-    acc = torch.zeros(2, dtype=torch.int64, device=device)
-    for word in ((seed >> 32) & _M32, seed & _M32):
-        acc = fold(acc, word)
-    return acc
+    with span("sampler"):
+        acc = torch.zeros(2, dtype=torch.int64, device=device)
+        for word in ((seed >> 32) & _M32, seed & _M32):
+            acc = fold(acc, word)
+        return acc
 
 
 def pixel_key(root: torch.Tensor, pixel_id, sample_idx) -> torch.Tensor:
     """Key per (pixel, spp-sample) pair: (N, 2)."""
-    return fold(fold(root, pixel_id), sample_idx)
+    with span("sampler"):
+        return fold(fold(root, pixel_id), sample_idx)
 
 
 def bounce_key(pk: torch.Tensor, bounce) -> torch.Tensor:
     """Key for one path vertex of a pixel-sample stream."""
-    return fold(pk, bounce)
+    with span("sampler"):
+        return fold(pk, bounce)
 
 
 def block_key(root: torch.Tensor, block_id, sample_idx) -> torch.Tensor:
     """Key per (image-block, spp-sample) stream: (N, 2). Blocks of 4x32
     pixels share one NEE light sample (render.integrators)."""
-    return fold(fold(fold(root, _BLOCK_NS), block_id), sample_idx)
+    with span("sampler"):
+        return fold(fold(fold(root, _BLOCK_NS), block_id), sample_idx)
 
 
 def _to_unit(h: torch.Tensor) -> torch.Tensor:
@@ -100,5 +106,6 @@ def uniform(key: torch.Tensor, n: int = 1, dim: int = 0) -> torch.Tensor:
             f"uniform() draw of {n} > {_DIM_STRIDE} scalars would alias the "
             f"next dimension's counters; split across dims instead"
         )
-    ctr = dim * _DIM_STRIDE + torch.arange(n, device=key.device)
-    return _to_unit(fold(key[..., None, :], ctr)[..., 1])
+    with span("sampler"):
+        ctr = dim * _DIM_STRIDE + torch.arange(n, device=key.device)
+        return _to_unit(fold(key[..., None, :], ctr)[..., 1])

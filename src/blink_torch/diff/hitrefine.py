@@ -30,6 +30,7 @@ from blink_torch.core import vec
 from blink_torch.kernels.sphere import sphere_t
 from blink_torch.kernels.triangle import triangle_tuv
 from blink_torch.kernels.types import KIND_SPHERE, KIND_TRI, T_MAX, T_MIN, Hit
+from blink_torch.obs.profile import span
 from blink_torch.scene.scene import Scene
 from blink_torch.scene.textures import sample_texture
 
@@ -48,10 +49,11 @@ class _GatherTriVerts(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g0, g1, g2):
         (i,) = ctx.saved_tensors
-        idx = torch.cat([i[:, 0], i[:, 1], i[:, 2]])
-        val = torch.cat([g0, g1, g2])
-        out = torch.zeros((ctx.n_verts, 3), dtype=val.dtype, device=val.device)
-        return out.index_add_(0, idx, val), None
+        with span("scatter_tri_verts"):
+            idx = torch.cat([i[:, 0], i[:, 1], i[:, 2]])
+            val = torch.cat([g0, g1, g2])
+            out = torch.zeros((ctx.n_verts, 3), dtype=val.dtype, device=val.device)
+            return out.index_add_(0, idx, val), None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +76,11 @@ def refine(o, d, hit: Hit, scene: Scene, shade: torch.Tensor | None) -> HitGeom:
     o, d: (N,3) rays. shade: the (T,16) packed triangle table, or None
     (live mode). Misses give zeroed fields and valid=False.
     """
+    with span("refine"):
+        return _refine(o, d, hit, scene, shade)
+
+
+def _refine(o, d, hit: Hit, scene: Scene, shade) -> HitGeom:
     n_rays = o.shape[0]
     dev = o.device
     prim = hit.prim.long()

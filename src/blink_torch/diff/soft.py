@@ -28,6 +28,7 @@ import torch
 from blink_torch.core import vec
 from blink_torch.diff.hitrefine import HitGeom
 from blink_torch.kernels.types import KIND_TRI
+from blink_torch.obs.profile import span
 from blink_torch.render.integrators import RAY_EPS, li_direct, nee_direct
 from blink_torch.scene.scene import Scene, empty_spheres
 from blink_torch.scene.textures import sample_texture
@@ -261,23 +262,26 @@ def li_direct_soft(o, d, keys, scene: Scene, backend, deterministic: bool, sigma
     hard = li_direct(o, d, keys, scene, backend, deterministic)
     out = hard
     if scene.n_spheres > 0:
-        # Background: the scene without spheres; the backend built for the
-        # whole scene serves it (its chunks hold triangles only).
-        scene_bg = scene.replace(spheres=empty_spheres().to(scene.device))
-        l_bg = li_direct(o, d, keys, scene_bg, backend, deterministic)
-        alpha, t_star, idx = _sphere_soft_terms(o, d, scene, sigma)
-        geom = _sphere_geom(o, d, scene, t_star, idx, alpha > 0.0)
-        l_sph = geom.emission + nee_direct(scene, geom, keys, backend, bounce=0,
-                                           deterministic=deterministic)
-        soft = alpha[:, None] * l_sph + (1.0 - alpha[:, None]) * l_bg
-        out = out + (soft - soft.detach())
+        with span("soft"):
+            # Background: the scene without spheres; the backend built for
+            # the whole scene serves it (its chunks hold triangles only).
+            scene_bg = scene.replace(spheres=empty_spheres().to(scene.device))
+            l_bg = li_direct(o, d, keys, scene_bg, backend, deterministic)
+            alpha, t_star, idx = _sphere_soft_terms(o, d, scene, sigma)
+            geom = _sphere_geom(o, d, scene, t_star, idx, alpha > 0.0)
+            l_sph = geom.emission + nee_direct(scene, geom, keys, backend, bounce=0,
+                                               deterministic=deterministic)
+            soft = alpha[:, None] * l_sph + (1.0 - alpha[:, None]) * l_bg
+            out = out + (soft - soft.detach())
     if hw is not None and scene.n_triangles > 0:
-        # A geometry-gradient estimator (tri_verts silhouettes): the camera
-        # is detached out of it. Camera gradients flow through the hard
-        # estimator's shading terms and the sphere-soft term.
-        o_m, d_m = o.detach(), d.detach()
-        hit = backend.intersect(o_m, d_m, scene)
-        soft_m = _mesh_soft_radiance(o_m, d_m, keys, scene, backend, deterministic, sigma,
-                                     hw, hit, residual_radiance=None, opaque_last=False)
-        out = out + (soft_m - soft_m.detach())
+        with span("soft"):
+            # A geometry-gradient estimator (tri_verts silhouettes): the
+            # camera is detached out of it. Camera gradients flow through
+            # the hard estimator's shading terms and the sphere-soft term.
+            o_m, d_m = o.detach(), d.detach()
+            hit = backend.intersect(o_m, d_m, scene)
+            soft_m = _mesh_soft_radiance(o_m, d_m, keys, scene, backend, deterministic,
+                                         sigma, hw, hit, residual_radiance=None,
+                                         opaque_last=False)
+            out = out + (soft_m - soft_m.detach())
     return out

@@ -42,6 +42,7 @@ from blink_torch.kernels.traverse_wide import (
     traverse_closest_wide,
 )
 from blink_torch.kernels.types import KIND_NONE, KIND_TRI, T_MAX, T_MIN, Hit
+from blink_torch.obs import profile
 from blink_torch.scene.scene import Scene
 from blink_torch.scene.shade import pack_tri_shade_np
 
@@ -63,6 +64,14 @@ class Backend:
     def intersect(self, o, d, scene: Scene, alive=None) -> Hit:
         """Closest hit. `alive`: optional lane mask — dead lanes report the
         canonical miss, and on wide skip the walk (t_far = 0)."""
+        with profile.span("closest"):
+            if profile.recording():
+                n = o.shape[0]
+                profile.count("walk_lanes.closest", n)
+                profile.count("walk_live.closest", n if alive is None else alive.sum())
+            return self._intersect(o, d, scene, alive)
+
+    def _intersect(self, o, d, scene: Scene, alive) -> Hit:
         o, d = o.detach().contiguous(), d.detach().contiguous()
         if self.name == "brute":
             return intersect_brute(o, d, scene, alive=alive)
@@ -96,8 +105,15 @@ class Backend:
     def occluded(self, o, d, scene: Scene, t_far) -> torch.Tensor:
         """True where a primitive is hit at T_MIN <= t < t_far (brute: up to
         and including t_far, as `blink`'s brute backend)."""
+        with profile.span("shadow"):
+            t_far = t_far.detach().to(torch.float32).contiguous()
+            if profile.recording():
+                profile.count("walk_lanes.anyhit", t_far.shape[0])
+                profile.count("walk_live.anyhit", (t_far > 0).sum())
+            return self._occluded(o, d, scene, t_far)
+
+    def _occluded(self, o, d, scene: Scene, t_far) -> torch.Tensor:
         o, d = o.detach().contiguous(), d.detach().contiguous()
-        t_far = t_far.detach().to(torch.float32).contiguous()
         if self.name == "brute":
             return occluded_brute(o, d, scene, t_far)
         if self.name == "bvh":

@@ -2,10 +2,46 @@
 
 `trace(logdir)` records a region with torch.profiler (the host, and the
 CUDA device where there is one) and writes a Chrome trace into `logdir`,
-which tensorboard's profiler plugin and chrome://tracing read;
-`annotate(name)` is a helper for callers that want a named range of
-their own in that timeline (the pipeline marks none itself); `timed`
+which tensorboard's profiler plugin and chrome://tracing read; `timed`
 wall-clocks a block, as the CLI's render does.
+
+The pipeline marks its own stages and counts its walk lanes, but only
+while a torch profiler records (`trace`, `render --profile <dir>`, or any
+`torch.profiler.profile` of the caller's). There is no switch: otherwise
+`span` returns one shared no-op context and `count` returns at once, so
+nothing is recorded or allocated.
+
+`span(name)` is a `record_function("blink." + name)` range: a CPU user
+annotation in the same trace as the kernels it launches. A kernel belongs
+to the innermost `blink.*` range open on the thread that launched it.
+
+  blink.render             render_image / render_rows: a frame, or a
+                           step's forward
+  blink.backward           render_grad's backward
+  blink.camera             generate_rays
+  blink.sampler            the sampler's keys and draws, inside any stage
+  blink.closest            Backend.intersect (the closest-hit walks)
+  blink.shadow             Backend.occluded (the any-hit walks)
+  blink.refine             hit refinement, shading rows and textures
+  blink.nee                next-event estimation (light rows, samples)
+  blink.bounce             li_path's radiance update, next direction,
+                           throughput and roulette
+  blink.compact            li_path's compaction and its inverse gather
+  blink.soft               li_direct_soft's sphere-soft and mesh-soft terms
+  blink.scatter_tri_verts  refine's vertex scatter, in the backward
+                           (launched on autograd's device thread)
+
+`count(name, value)` adds to a counter; `counts()` reads the sums (one
+device sync) and `reset_counts()` clears them. Counters:
+
+  walk_lanes.closest, walk_lanes.anyhit  lanes each walk call is launched
+                                         over
+  walk_live.closest, walk_live.anyhit    its live lanes: intersect's
+                                         `alive` ones (all without a
+                                         mask), occluded's with t_far > 0
+
+A masked walk call counts its live lanes on the device (two or three
+launches: the mask, its cast and the sum), only while a profiler records.
 """
 from __future__ import annotations
 
@@ -13,6 +49,15 @@ import contextlib
 import time
 
 import torch
+
+#: The profiler's own enabled state on the calling thread (autograd's
+#: device threads inherit it from the thread that runs the backward).
+recording = torch._C._autograd._profiler_enabled
+
+_OFF = contextlib.nullcontext()
+
+#: Counter name -> values recorded (Python ints and 0-d device tensors).
+_counts: dict[str, list] = {}
 
 
 @contextlib.contextmanager
@@ -32,10 +77,43 @@ def trace(logdir: str | None):
         yield prof
 
 
-def annotate(name: str):
-    """A named range inside a trace, for a caller to mark a stage of its
-    own."""
-    return torch.profiler.record_function(name)
+def span(name: str):
+    """The range `blink.<name>` while a profiler records; else a shared
+    no-op context."""
+    if recording():
+        return torch.profiler.record_function("blink." + name)
+    return _OFF
+
+
+def count(name: str, value) -> None:
+    """Add `value` (an int, or a 0-d tensor left unsynchronized) to the
+    counter `name` while a profiler records."""
+    if recording():
+        _counts.setdefault(name, []).append(value)
+
+
+def counts() -> dict[str, int]:
+    """Each counter's sum since the last reset_counts(); the tensors among
+    the values are read in one copy to the host."""
+    out = {}
+    tensors = []  # (name, 0-d tensor)
+    for name, values in _counts.items():
+        out[name] = 0
+        for v in values:
+            if torch.is_tensor(v):
+                tensors.append((name, v))
+            else:
+                out[name] += int(v)
+    if tensors:
+        dev = tensors[0][1].device
+        host = torch.stack([v.to(device=dev, dtype=torch.int64) for _, v in tensors]).tolist()
+        for (name, _), v in zip(tensors, host):
+            out[name] += v
+    return out
+
+
+def reset_counts() -> None:
+    _counts.clear()
 
 
 @contextlib.contextmanager

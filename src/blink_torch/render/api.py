@@ -21,6 +21,7 @@ import torch
 
 from blink_torch.config import RenderConfig
 from blink_torch.core import sampler
+from blink_torch.obs.profile import span
 from blink_torch.render.camera import generate_rays
 from blink_torch.render.integrators import INTEGRATORS, li_path
 from blink_torch.scene.scene import Scene
@@ -172,12 +173,16 @@ def render_image(scene: Scene, cfg: RenderConfig, backend) -> torch.Tensor:
     render_rows. cfg.soft_sigma > 0 gives soft-silhouette gradients; with
     cfg.soft_mesh too, the rays run in row-major pixel order, one sample a
     step, since mesh silhouettes read each pixel's image neighbours."""
+    with span("render"):
+        return _image(scene, cfg, backend)
+
+
+def _image(scene: Scene, cfg: RenderConfig, backend) -> torch.Tensor:
     h, w, spp = cfg.height, cfg.width, cfg.spp
     soft_mesh = cfg.soft_mesh and cfg.soft_sigma > 0
     sb = 1 if soft_mesh else _spp_block(cfg, backend, _tile_shape(h, w))
     if sb == 1:
-        return render_rows(scene, cfg, backend, 0, h, soft_sigma=cfg.soft_sigma,
-                           soft_mesh=soft_mesh)
+        return _rows(scene, cfg, backend, 0, h, cfg.soft_sigma, soft_mesh)
     backend = _with_shade(scene, backend)
     dev = scene.device
     root = sampler.seed_key(cfg.seed, device=dev)
@@ -207,6 +212,12 @@ def render_rows(scene: Scene, cfg: RenderConfig, backend, row0: int, rows: int,
     is not read here: the dist renders, like blink's, stay hard). With
     `soft_mesh` the rays run in row-major order and the mesh silhouettes
     see the block as the image."""
+    with span("render"):
+        return _rows(scene, cfg, backend, row0, rows, soft_sigma, soft_mesh)
+
+
+def _rows(scene: Scene, cfg: RenderConfig, backend, row0: int, rows: int,
+          soft_sigma: float, soft_mesh: bool) -> torch.Tensor:
     backend = _with_shade(scene, backend)
     w = cfg.width
     dev = scene.device

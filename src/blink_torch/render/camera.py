@@ -11,6 +11,7 @@ import math
 import torch
 
 from blink_torch.core import sampler, vec
+from blink_torch.obs.profile import span
 from blink_torch.scene.scene import Camera
 
 
@@ -40,6 +41,12 @@ def generate_rays(
     keys — columns 0:2 the per-(pixel, sample) stream, columns 2:4 the
     per-(4x32-pixel block, sample) stream.
     """
+    with span("camera"):
+        return _rays(cam, height, width, root_key, sample_idx, jitter, pixel_id)
+
+
+def _rays(cam: Camera, height: int, width: int, root_key, sample_idx, jitter: bool,
+          pixel_id):
     dev = cam.origin.device
     if pixel_id is None:
         pixel_id = torch.arange(height * width, dtype=torch.int64, device=dev)

@@ -14,6 +14,7 @@ import torch
 from blink_torch.core import sampler, vec
 from blink_torch.diff.brdf import INV_PI, sample_cosine
 from blink_torch.diff.hitrefine import HitGeom, refine
+from blink_torch.obs.profile import span
 from blink_torch.render.wavefront import compaction_order
 from blink_torch.sampling.lights import pack_light_rows, sample_light_point
 from blink_torch.scene.scene import Scene
@@ -72,6 +73,12 @@ def nee_direct(scene: Scene, geom: HitGeom, keys, backend, bounce: int,
     Stochastic: one sample, uniform light choice. Deterministic (goldens):
     the sum over every light sampled at a fixed interior point.
     """
+    with span("nee"):
+        return _nee(scene, geom, keys, backend, bounce, deterministic)
+
+
+def _nee(scene: Scene, geom: HitGeom, keys, backend, bounce: int,
+         deterministic: bool) -> torch.Tensor:
     n = geom.t.shape[0]
     if scene.n_lights == 0:
         return torch.zeros((n, 3), dtype=torch.float32, device=geom.t.device)
@@ -127,40 +134,44 @@ def li_path(o, d, keys, scene: Scene, backend, max_depth: int = 4,
     for b in range(max_depth):
         hit = backend.intersect(o, d, scene, alive=alive if CULL_DEAD else None)
         geom = refine(o, d, hit, scene, shade=backend.shade)
-        alive = alive & geom.valid
-
-        # Camera-visible emitters only (NEE covers emitters hit later).
-        if b == 0:
-            radiance = radiance + torch.where(alive[:, None], geom.emission, 0.0)
         nee = nee_direct(scene, geom, keys, backend, bounce=b, deterministic=deterministic)
-        radiance = radiance + torch.where(alive[:, None], beta * nee, 0.0)
 
-        # Cosine-sample the next direction: f * cos / pdf = albedo exactly.
-        bk = sampler.bounce_key(keys[:, :2], b)
-        u = sampler.uniform(bk, 2, dim=1)
-        new_d = sample_cosine(geom.n, u[:, 0], u[:, 1])
-        new_o = geom.p + geom.n * RAY_EPS
-        beta = beta * geom.albedo
-        # Kill paths of (near) zero throughput (emitters have albedo 0).
-        alive = alive & (torch.amax(beta, dim=1) > 1e-5)
-        if use_rr and b >= rr_start:
-            # Dim 2 of the bounce stream (dims 0 and 1: NEE, the bounce).
-            u_rr = sampler.uniform(bk, 1, dim=2)[:, 0]
-            p = torch.clamp(torch.amax(beta, dim=1), 0.05, 1.0)
-            beta = beta * (1.0 / p)[:, None]
-            alive = alive & (u_rr < p)
-        o = torch.where(alive[:, None], new_o, o)
-        d = torch.where(alive[:, None], new_d, d)
+        with span("bounce"):
+            alive = alive & geom.valid
+            # Camera-visible emitters only (NEE covers emitters hit later).
+            if b == 0:
+                radiance = radiance + torch.where(alive[:, None], geom.emission, 0.0)
+            radiance = radiance + torch.where(alive[:, None], beta * nee, 0.0)
+
+            # Cosine-sample the next direction: f * cos / pdf = albedo exactly.
+            bk = sampler.bounce_key(keys[:, :2], b)
+            u = sampler.uniform(bk, 2, dim=1)
+            new_d = sample_cosine(geom.n, u[:, 0], u[:, 1])
+            new_o = geom.p + geom.n * RAY_EPS
+            beta = beta * geom.albedo
+            # Kill paths of (near) zero throughput (emitters have albedo 0).
+            alive = alive & (torch.amax(beta, dim=1) > 1e-5)
+            if use_rr and b >= rr_start:
+                # Dim 2 of the bounce stream (dims 0 and 1: NEE, the bounce).
+                u_rr = sampler.uniform(bk, 1, dim=2)[:, 0]
+                p = torch.clamp(torch.amax(beta, dim=1), 0.05, 1.0)
+                beta = beta * (1.0 / p)[:, None]
+                alive = alive & (u_rr < p)
+            o = torch.where(alive[:, None], new_o, o)
+            d = torch.where(alive[:, None], new_d, d)
 
         if compact:
-            perm = compaction_order(alive, o, d)
-            o, d, beta, radiance, alive, keys, ray_ix = (
-                x.index_select(0, perm)
-                for x in (o, d, beta, radiance, alive, keys, ray_ix))
+            with span("compact"):
+                perm = compaction_order(alive, o, d)
+                o, d, beta, radiance, alive, keys, ray_ix = (
+                    x.index_select(0, perm)
+                    for x in (o, d, beta, radiance, alive, keys, ray_ix))
     if compact:
-        # Back to ray order: gather through the inverse permutation.
-        inv = torch.empty_like(ray_ix).index_copy_(0, ray_ix, torch.arange(n, device=d.device))
-        radiance = radiance.index_select(0, inv)
+        with span("compact"):
+            # Back to ray order: gather through the inverse permutation.
+            inv = torch.empty_like(ray_ix).index_copy_(0, ray_ix,
+                                                       torch.arange(n, device=d.device))
+            radiance = radiance.index_select(0, inv)
     return radiance
 
 

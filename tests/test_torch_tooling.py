@@ -13,8 +13,8 @@ triangle helpers.
   then writes through its own stub, as where TensorFlow is not installed,
   and imports in under a second instead of 12. Importing the package does
   not import torch.utils.tensorboard.
-- render --profile writes a torch.profiler trace holding the annotated
-  stage, and the image through save_image_ppm.
+- render --profile writes a torch.profiler trace, and the image through
+  save_image_ppm; a span opened under the profiler is in it as blink.<name>.
 - load_obj, save_image_ppm and save_image_npy, an obj: scene,
   triangle_vertices and triangle_area_normal equal blink's.
 """
@@ -38,7 +38,7 @@ from blink_torch import cli
 from blink_torch.api import build_scene, fit, render
 from blink_torch.ckpt import load_ckpt, save_ckpt
 from blink_torch.config import FitConfig, get_config
-from blink_torch.obs.profile import annotate, trace
+from blink_torch.obs.profile import span, trace
 from blink_torch.scene import io, scene
 from test_bvh import _random_tris
 from test_torch_build import DEFAULT_THREADS, port_tris
@@ -151,12 +151,14 @@ def test_render_profile_writes_a_trace(tmp_path, capsys):
                      "--device", "cpu", "--profile", str(logdir), "--out", str(out)]) == 0
     assert json.loads(capsys.readouterr().out)["rays"] == 256
     (trace_file,) = logdir.glob("*.pt.trace.json")
-    assert json.loads(trace_file.read_text())["traceEvents"]
+    events = json.loads(trace_file.read_text())["traceEvents"]
+    assert {"blink.render", "blink.camera", "blink.closest", "blink.nee"} <= {
+        e.get("name") for e in events}
     assert out.read_bytes().startswith(b"P6\n16 16\n255\n")
     with trace(str(tmp_path / "p2")) as prof:
-        with annotate("shade"):
+        with span("shade"):
             torch.ones(8).sum()
-    assert any(e.key == "shade" for e in prof.key_averages())
+    assert any(e.key == "blink.shade" for e in prof.key_averages())
     with trace("") as none:
         assert none is None
 
