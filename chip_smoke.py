@@ -6,8 +6,8 @@ against their plain torch versions.
 
 Phases (each asserts; any failure exits non-zero):
   1. build    — compile src/blink_torch/csrc/{wide_walk,sphere_pass,
-                binary_walk}.cu, the counting builds of wide_walk.cu
-                (-DWIDE_WALK_COUNTS) and binary_walk.cu
+                binary_walk,sampler_hash}.cu, the counting builds of
+                wide_walk.cu (-DWIDE_WALK_COUNTS) and binary_walk.cu
                 (-DBINARY_WALK_COUNTS) and the empty build of
                 sphere_pass.cu (-DSPHERE_PASS_EMPTY) with nvcc, in
                 parallel, and print ptxas's register, shared-memory and
@@ -51,6 +51,16 @@ Phases (each asserts; any failure exits non-zero):
                 gradient; soft and hard fwd+bwd times; the mesh-offset
                 recovery of tests/test_fit.py (bunny_scene(2), 48x48, 50
                 steps, the backend built anew each step) to blink's bounds;
+  4d. sampler — one frame of the sponza preset uncut (512x512, 16 spp,
+                path depth 4, compaction, roulette from bounce 1: raybench's
+                sponza1m.path) on the Sponza 1M scene: the sampler kernel's
+                11 fold and 12 uniform launches (seed, pixel and block
+                keys and the camera's jitter; each bounce's NEE and bounce
+                keys and draws, roulette from bounce 1), each held bit for
+                bit to the plain mirror on its own inputs, with the
+                kernel's and the plain version's times and the byte bound
+                of each call and of the frame, and the kernels' registers
+                and spills (the kernels line's sampler_hash row);
   5. parity   — on the 1M-triangle Sponza scene with the production BVH,
                 the closest-hit and any-hit kernels against their plain
                 versions on 65,536 primary rays (every 16th of the
@@ -185,11 +195,13 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
 import multiprocessing
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+from functools import partial
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -234,6 +246,8 @@ SOURCE = "src/blink_torch/csrc/wide_walk.cu"
 REPLACES = "src/blink/kernels/traverse_pallas.py:559"
 SPHERE_SOURCE = "src/blink_torch/csrc/sphere_pass.cu"
 SPHERE_REPLACES = "src/blink/kernels/sphere.py:58"
+#: The sampler's hash chain (core/sampler.py); it replaces no TPU kernel.
+SAMPLER_SOURCE = "src/blink_torch/csrc/sampler_hash.cu"
 BINARY_SOURCE = "src/blink_torch/csrc/binary_walk.cu"
 #: The TPU kernel each binary entry point replaces (builders in
 #: traverse_pallas.py, all reaching pallas_call at :1296).
@@ -243,7 +257,7 @@ BINARY_REPLACES = {
     "ordered_closest": "src/blink/kernels/traverse_pallas.py:348",
     "ordered_anyhit": "src/blink/kernels/traverse_pallas.py:449",
 }
-KERNELS = ("wide_walk", "sphere_pass", "binary_walk")
+KERNELS = ("wide_walk", "sphere_pass", "binary_walk", "sampler_hash")
 #: The production walks' times before their redesign for latency (ms at
 #: 1,048,576 rays: the production layout's 3 chunks, layout (a)'s 7), from
 #: this script's run on an H100 80GB HBM3 at 700 W (PERF.md §6, rows 1-2,
@@ -2378,6 +2392,86 @@ def phase_bvhvariants(dev, n_tris: int = 200_000, size: int = 512, probe_rays: i
     return {"sbvh_build_s": sbvh_s, "ms": ms, "probe": out}
 
 
+#: What each of a path frame's uniform() calls draws, by (n, dim).
+SAMPLER_DRAWS = {(2, 0): "camera", (3, 0): "nee", (2, 1): "bounce", (1, 2): "roulette"}
+
+
+def phase_sampler(scene, backend, dev) -> dict:
+    """One frame of the sponza preset uncut (raybench's sponza1m.path) with
+    the sampler kernel's calls recorded: 11 fold and 12 uniform launches,
+    each held bit for bit to the plain mirror on its own inputs, timed
+    against it, and bounded by its bytes. Returns the kernels line's row."""
+    cfg = get_config("sponza")
+    fold_k, uniform_k = sampler._fold_kernel, sampler._uniform_kernel
+    calls = []
+
+    def fold_rec(key, words, d):
+        out = fold_k(key, words, d)
+        calls.append(("fold", key, words, d, out))
+        return out
+
+    def uniform_rec(key, n, dim):
+        out = uniform_k(key, n, dim)
+        calls.append(("uniform", key, (n, dim), key.device, out))
+        return out
+
+    sampler.reset_launches()
+    sampler._fold_kernel, sampler._uniform_kernel = fold_rec, uniform_rec
+    try:
+        img = render(scene, cfg, device=dev, backend=backend)
+        torch.cuda.synchronize()
+    finally:
+        sampler._fold_kernel, sampler._uniform_kernel = fold_k, uniform_k
+    launches = dict(sampler.LAUNCHES)
+    assert launches == {"sampler_fold": 11, "sampler_uniform": 12}, launches
+    assert torch.isfinite(img).all()
+    draws = [SAMPLER_DRAWS[args] for kind, _, args, _, _ in calls if kind == "uniform"]
+    assert draws == ["camera"] + ["nee", "bounce"] + ["nee", "bounce", "roulette"] * 3, draws
+
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0}
+    bounce = -1
+    for kind, key, args, d, out in calls:
+        rows = out.shape[0] if out.dim() == 2 else 1
+        key_bytes = 16 * (key.shape[0] if key is not None and key.dim() == 2 else 1)
+        if kind == "fold":
+            words = args
+            label = {2: "seed" if key is None else "pixel", 3: "block"}.get(
+                len(words), f"bounce {words[0]} key")
+            zero = torch.zeros(2, dtype=torch.int64, device=d)
+            plain = partial(sampler.fold_chain_plain, zero if key is None else key, words)
+            kernel = partial(fold_k, key, words, d)
+            nbytes = key_bytes + 16 * rows + sum(8 * w.numel() for w in words if torch.is_tensor(w))
+        else:
+            n, dim = args
+            label = SAMPLER_DRAWS[args]
+            bounce += label == "nee"
+            if label != "camera":
+                label = f"bounce {bounce} {label}"
+            plain = partial(sampler.uniform_plain, key, n, dim)
+            kernel = partial(uniform_k, key, n, dim)
+            nbytes = key_bytes + 4 * n * rows
+        assert torch.equal(out, plain()), (kind, label)
+        ms, plain_ms = events_ms(kernel, 5), events_ms(plain, 1)
+        bound_ms = nbytes / PEAK_BYTES * 1e3
+        log(f"[sampler] {kind} {label}: {rows} rows, identical to the plain mirror; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({nbytes} B)")
+        total["ms"] += ms
+        total["plain_ms"] += plain_ms
+        total["bound_ms"] += bound_ms
+        total["bytes"] += nbytes
+    sampler.reset_launches()
+    text = _build.log_path("sampler_hash").read_text()
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
+    spill = sum(_build.ptxas_spills(text).values())
+    log(f"[sampler] a frame: {len(calls)} launches, kernel {total['ms']:.4f} ms, plain "
+        f"{total['plain_ms']:.3f} ms, bound {total['bound_ms']:.4f} ms (bytes: {total['bytes']}), "
+        f"{total['bound_ms'] / total['ms']:.4f} of the bound; registers {regs}, spills {spill} B")
+    return {"name": "sampler_hash", "route": "cuda", "source": SAMPLER_SOURCE, "replaces": None,
+            "launches": len(calls), "max_abs_err": 0.0, "ms": total["ms"],
+            "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "registers": max(regs), "spill_bytes": spill}
+
+
 def timed_phase(tag: str, fn, *args, **kw):
     """fn(*args, **kw), its seconds logged under [tag]."""
     t0 = time.perf_counter()
@@ -2425,6 +2519,7 @@ def main() -> int:
         f"{scene.n_spheres} spheres: scene {t1 - t0:.1f} s, BVH {t2 - t1:.1f} s, "
         f"{len(backend.chunks)} chunks, max_stack {backend.chunks[0].max_stack}")
 
+    sampler_row = timed_phase("sampler", phase_sampler, scene, backend, dev)
     errs = timed_phase("parity", phase_parity, scene, backend, dev)
     timed_phase("golden", phase_golden, dev)
     rows, frame_ms = timed_phase("frame", phase_frame, scene, backend, cfg, dev, errs)
@@ -2450,7 +2545,7 @@ def main() -> int:
     binary_rows = timed_phase("binary", phase_binary, scene, backend, dev)
     skip_rows, config2 = timed_phase("config2", phase_config2, dev)
     timed_phase("bvhvariants", phase_bvhvariants, dev)
-    rows += skip_rows + binary_rows + leafmode_rows
+    rows += skip_rows + binary_rows + leafmode_rows + [sampler_row]
     from blink_torch.dist import mesh
 
     torch.cuda.set_device(dev)

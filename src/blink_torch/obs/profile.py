@@ -39,6 +39,11 @@ device sync) and `reset_counts()` clears them. Counters:
   walk_live.closest, walk_live.anyhit    its live lanes: intersect's
                                          `alive` ones (all without a
                                          mask), occluded's with t_far > 0
+  sampler_rows.kernel, sampler_rows.plain
+                                         rows each core/sampler.py call
+                                         hashes: in csrc/sampler_hash.cu
+                                         (a CUDA key) or in plain torch
+                                         (a CPU key)
 
 A masked walk call counts its live lanes on the device (two or three
 launches: the mask, its cast and the sum), only while a profiler records.
