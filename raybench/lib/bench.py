@@ -2,12 +2,14 @@
 stretch, the check against the reference, and the result line.
 
 Everything a cell is made of is found by name from `BENCHMARK.json`: its
-configuration file (`configs[].file`), its traffic mix
-(`raybench/traffic/<traffic>.json`), the limits of its comparison
-(`raybench/limits/<workload>.json`) and each metric's reader
-(`raybench/metrics/<metric>.py`, a function `read(ctx)` that returns a
-number or None). A traffic mix names one of the step kinds below; a new
-mix is a new data file.
+configuration file (`configs[].file`), the scene that file names
+(`raybench/scenes/<scene>.py`: `build(**scene_args)` and `TINY_ARGS`),
+the reference it names (`raybench/reference/<reference>.py`, `render` by
+default), its traffic mix (`raybench/traffic/<traffic>.json`), the limits
+of its comparison (`raybench/limits/<workload>.json`) and each metric's
+reader (`raybench/metrics/<metric>.py`, a function `read(ctx)` that
+returns a number or None). A traffic mix names one of the step kinds
+below; a new mix is a new data file, and a new configuration new files.
 
 Step kinds (the user's loop, one client, closed: the next step is issued
 once the host has read the last one's result):
@@ -29,14 +31,14 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from raybench.lib import scenes, walkcount
+from raybench.lib import walkcount
 from raybench.lib.trace import STEP_SPAN, Profile
-from raybench.reference import render as ref
 
 #: Top-level module names that may not be loaded when the result prints.
 FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "blink")
@@ -67,6 +69,10 @@ class CellSpec:
     config: dict
     traffic: dict
     limits: dict
+    #: The configuration's scene file (`build(**scene_args)`, `TINY_ARGS`).
+    scene: types.ModuleType
+    #: The configuration's reference (`loss_and_grads`, `frame_pixels`).
+    reference: types.ModuleType
 
     @property
     def name(self) -> str:
@@ -83,21 +89,35 @@ class CellSpec:
 
 
 def cell_spec(root, workload: str, manifest: dict | None = None) -> CellSpec:
+    """The cell's files, found by name; the configuration's scene and
+    reference (`"reference"`, `render` by default) are loaded here, so a
+    name with no file fails at set-up."""
     root = Path(root)
     manifest = manifest or load_json(root / "BENCHMARK.json")
     wl = {w["name"]: w for w in manifest["workloads"]}[workload]
     cfg = {c["name"]: c for c in manifest["configs"]}[wl["config"]]
-    return CellSpec(root, manifest, wl, load_json(root / cfg["file"]),
+    config = load_json(root / cfg["file"])
+    return CellSpec(root, manifest, wl, config,
                     load_json(root / "raybench" / "traffic" / f"{wl['traffic']}.json"),
-                    load_json(root / "raybench" / "limits" / f"{workload}.json"))
+                    load_json(root / "raybench" / "limits" / f"{workload}.json"),
+                    load_module(root, "scenes", config["scene"]),
+                    load_module(root, "reference", config.get("reference", "render")))
+
+
+def load_module(root, folder: str, name: str) -> types.ModuleType:
+    """`raybench/<folder>/<name>.py` under `root`, loaded by path; a name
+    with no file raises, naming the path."""
+    path = Path(root) / "raybench" / folder / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"raybench: {folder} has no {name!r}: no file {path}")
+    spec = importlib.util.spec_from_file_location(f"raybench_{folder}_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def load_reader(root, metric: str):
-    path = Path(root) / "raybench" / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(f"raybench_metric_{metric}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return load_module(root, "metrics", metric).read
 
 
 # --------------------------------------------------------------------------
@@ -107,8 +127,9 @@ def load_reader(root, metric: str):
 
 def scene_arrays(spec: CellSpec, seed: int) -> dict:
     """The configuration's scene, with the traffic's seeded vertex offset
-    (a rigid shift of one material's triangles) applied."""
-    arrays = scenes.build(spec.config)
+    (a rigid shift of one material's triangles) applied. Groups beyond
+    those the program reads (such as `instances`) pass through untouched."""
+    arrays = spec.scene.build(**spec.config.get("scene_args", {}))
     off = spec.traffic.get("vertex_offset")
     if off:
         rng = np.random.default_rng([seed % 2**64, 0x0FF5])
@@ -206,6 +227,7 @@ def compare(spec: CellSpec, arrays: dict, seed: int, kept, device,
     of (sampler seed, what Program.step kept). The reference runs in
     `dtype` (bfloat16: the control)."""
     settings = render_settings(spec)
+    ref = spec.reference
     out = {}
 
     def worst(name, v):

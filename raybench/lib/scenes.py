@@ -1,5 +1,5 @@
-"""The benchmark's own scene generators: host-side numpy, a frozen copy of
-the procedural builders the configurations name (`sponza` and `bunny`),
+"""Helpers of the benchmark's scene files (`raybench/scenes/<scene>.py`):
+host-side numpy, a frozen copy of the program's procedural builders,
 array for array, so that a change to the program's builders cannot change
 what the benchmark renders.
 
@@ -82,13 +82,16 @@ def checker_texture(res: int = 64, tiles: int = 8, c0=(0.9, 0.9, 0.9), c1=(0.2, 
     return (np.asarray(c0, F32) * (1 - checker) + np.asarray(c1, F32) * checker).astype(F32)
 
 
-def _camera(origin, look_at, fov) -> dict:
+def camera(origin, look_at, fov) -> dict:
+    """The `camera` group: a pinhole at `origin` looking at `look_at`."""
     return {"origin": np.asarray(origin, F32), "look_at": np.asarray(look_at, F32),
             "up": np.asarray([0.0, 1.0, 0.0], F32), "fov_deg": np.asarray(fov, F32)}
 
 
-def _scene(tris: dict, albedo, emission, tex_id, textures, camera: dict) -> dict:
-    """Assemble the dict; the light list is every emissive triangle."""
+def assemble(tris: dict, albedo, emission, tex_id, textures, cam: dict) -> dict:
+    """The scene dict of a triangle soup (MeshBuilder.build), its
+    materials, textures (None: none) and camera; the light list is every
+    emissive triangle."""
     emission = np.asarray(emission, F32)
     emissive = emission.sum(axis=-1) > 0.0
     light_prim = np.nonzero(emissive[tris["material_id"]])[0].astype(I32)
@@ -101,7 +104,7 @@ def _scene(tris: dict, albedo, emission, tex_id, textures, camera: dict) -> dict
         "lights": {"kind": np.zeros(light_prim.shape, I32), "prim": light_prim},
         "textures": (np.zeros((0, 8, 8, 3), F32) if textures is None
                      else np.asarray(textures, F32)),
-        "camera": camera,
+        "camera": cam,
     }
 
 
@@ -113,9 +116,9 @@ def bunny(subdiv: int = 6) -> dict:
     mb.add_quad([-1, 3.0, -1], [-1, 3.0, 1], [1, 3.0, 1], [1, 3.0, -1], 1)
     v, f, uv = icosphere(subdiv, radius=0.8, center=(0.0, 0.9, 0.0))
     mb.add_mesh(v, f, 2, uv)
-    return _scene(mb.build(), [[0.73, 0.73, 0.73], [0, 0, 0], [0.55, 0.44, 0.35]],
-                  [[0, 0, 0], [14.0, 14.0, 14.0], [0, 0, 0]], [-1, -1, -1], None,
-                  _camera([0.0, 1.6, 3.4], [0.0, 0.8, 0.0], 45.0))
+    return assemble(mb.build(), [[0.73, 0.73, 0.73], [0, 0, 0], [0.55, 0.44, 0.35]],
+                    [[0, 0, 0], [14.0, 14.0, 14.0], [0, 0, 0]], [-1, -1, -1], None,
+                    camera([0.0, 1.6, 3.4], [0.0, 0.8, 0.0], 45.0))
 
 
 def sponza(n_tris: int = 1_000_000, seed: int = 7) -> dict:
@@ -162,14 +165,6 @@ def sponza(n_tris: int = 1_000_000, seed: int = 7) -> dict:
                 v, f, uv = icosphere(3, radius=r, center=(x + jx, 0.5 + 1.0 * s, z + jz))
                 mb.add_mesh(v, f, 3 + int(rng.integers(n_col_mats)), uv)
                 placed += 1
-    return _scene(mb.build(), albedo, emission, tex, textures,
-                  _camera([0.0, 3.0, hz * 0.95], [0.0, 2.0, 0.0], 55.0))
+    return assemble(mb.build(), albedo, emission, tex, textures,
+                    camera([0.0, 3.0, hz * 0.95], [0.0, 2.0, 0.0], 55.0))
 
-
-#: Scene builders by the name a configuration file gives.
-BUILDERS = {"sponza": sponza, "bunny": bunny}
-
-
-def build(config: dict) -> dict:
-    """The scene a configuration file describes (`scene` and its `args`)."""
-    return BUILDERS[config["scene"]](**config.get("scene_args", {}))

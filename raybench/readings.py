@@ -30,7 +30,6 @@ def main(argv=None) -> int:
     import torch
 
     from raybench.lib import bench
-    from raybench.reference import render as ref
 
     bench.env_for_caches(ROOT)
     if not torch.cuda.is_available():
@@ -38,6 +37,7 @@ def main(argv=None) -> int:
         return 2
     dev = torch.device("cuda:0")
     spec = bench.cell_spec(ROOT, args.workload)
+    ref = spec.reference
     rng = random.Random(args.first_seed if args.first_seed is not None else time.time_ns())
     seeds = [rng.randrange(2**31, 2**32) for _ in range(args.seeds + args.control_seeds)]
     settings = bench.render_settings(spec)
@@ -86,30 +86,19 @@ def main(argv=None) -> int:
 def _image_gap(spec, prog, arrays, seed, sseed, dev) -> dict:
     """Where the forward image of a gradient step departs from the
     reference's: the program's image by `api.render` at the same sampler
-    seed, the reference's row block by row block. The pixels off by more
-    than 1e-4, the largest gap, and their share of the loss."""
+    seed, the reference's by `frame_pixels` over every pixel. The pixels
+    off by more than 1e-4, the largest gap, and their share of the loss."""
     import dataclasses
 
     import torch
 
     from raybench.lib import bench
-    from raybench.reference import render as ref
 
     settings = bench.render_settings(spec)
-    h, w = settings["height"], settings["width"]
     cfg = dataclasses.replace(prog.cfg, seed=sseed)
     img = prog.api.render(prog.scene, cfg, device=dev, backend=prog.backend).reshape(-1, 3)
-    scene = ref.Scene(arrays, dev)
-    bvh = ref.BVH(scene)
-    rows = 256 if not settings.get("soft_mesh") else h
-    out = []
-    with torch.no_grad():
-        for r0 in range(0, h, rows):
-            pid = torch.arange(r0 * w, min(h, r0 + rows) * w, device=dev)
-            acc = sum(ref.radiance(settings, scene, bvh, pid, s, sseed)
-                      for s in range(settings["spp"]))
-            out.append(acc / settings["spp"])
-    rimg = torch.cat(out)
+    pid = torch.arange(settings["height"] * settings["width"], device=dev)
+    rimg = spec.reference.frame_pixels(arrays, settings, pid, sseed, dev)
     gap = (img - rimg).abs().amax(1)
     off = gap > 1e-4
     tgt = bench.make_target(spec, seed, dev).reshape(-1, 3)

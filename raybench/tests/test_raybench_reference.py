@@ -1,6 +1,8 @@
 """The reference against the program's plain path at a small size on the
-CPU; the control (the reference in bfloat16 in the program's place) and
-planted faults of the timed path come out not correct."""
+CPU, for every one-card cell of the manifest (the `cell` argument); the
+control (the reference in bfloat16 in the program's place) and planted
+faults of the timed path come out not correct."""
+import hashlib
 import time
 
 import numpy as np
@@ -8,9 +10,6 @@ import pytest
 import torch
 
 from raybench.lib import bench, scenes
-from raybench.reference import render as ref
-
-CELLS = ["sponza1m.grad", "sponza1m.path", "bunny82k.grad_softmesh", "sponza1m.grad_materials"]
 
 
 def test_scenes_are_the_program_builders():
@@ -24,6 +23,35 @@ def test_scenes_are_the_program_builders():
         np.testing.assert_array_equal(ours["textures"], theirs.textures.numpy())
 
 
+#: sha256 of each configuration's scene at its own `scene_args`, taken from
+#: the scene table the harness had before scenes were files of their own.
+SCENE_SHA256 = {
+    "sponza1m": "bd9730bcca087cd3cdd9c97f919aafb7e8f5ae436adf5ba80a69fd5f25255ec7",
+    "bunny82k": "c7bfbb2dd19a4305218f15b658023058e84316a73c7670cbf1fe10435b12e928",
+}
+
+
+def scene_sha256(arrays: dict) -> str:
+    """Every group and field in sorted order: name, dtype, shape, bytes."""
+    h = hashlib.sha256()
+    for g in sorted(arrays):
+        v = arrays[g]
+        for k, a in (sorted(v.items()) if isinstance(v, dict) else [("", v)]):
+            a = np.ascontiguousarray(a)
+            h.update(f"{g}.{k} {a.dtype.str} {a.shape}\n".encode())
+            h.update(a.tobytes())
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("config,workload", [("sponza1m", "sponza1m.path"),
+                                             ("bunny82k", "bunny82k.grad_softmesh")])
+def test_existing_scenes_are_byte_for_byte_as_before(root, config, workload):
+    spec = bench.cell_spec(root, workload)
+    assert spec.workload["config"] == config
+    arrays = spec.scene.build(**spec.config["scene_args"])
+    assert scene_sha256(arrays) == SCENE_SHA256[config]
+
+
 def _sound(spec, seed):
     arrays = bench.scene_arrays(spec, seed)
     prog = bench.Program(spec, seed, "cpu", arrays)
@@ -33,7 +61,6 @@ def _sound(spec, seed):
     return arrays, bench.compare(spec, arrays, seed, [(sseed, keep)], "cpu")
 
 
-@pytest.mark.parametrize("cell", CELLS)
 def test_reference_agrees_with_the_program(tiny_cell, cell):
     spec = tiny_cell(cell)
     _, got = _sound(spec, 2**31 + 5)
@@ -56,6 +83,7 @@ def test_a_nan_answer_fails(tiny_cell):
 def _control_keep(spec, arrays, seed, sseed):
     """What the program would keep, computed by the reference in bfloat16."""
     settings = bench.render_settings(spec)
+    ref = spec.reference
     if spec.traffic["kind"] == "render_grad":
         loss, grads = ref.loss_and_grads(arrays, settings, spec.traffic["params"],
                                          bench.make_target(spec, seed, "cpu"), sseed, "cpu",
@@ -65,7 +93,6 @@ def _control_keep(spec, arrays, seed, sseed):
     return ref.frame_pixels(arrays, settings, pid, sseed, "cpu", torch.bfloat16).numpy()
 
 
-@pytest.mark.parametrize("cell", CELLS)
 def test_control_fails_the_limits(tiny_cell, cell):
     spec = tiny_cell(cell)
     seed = 77
@@ -102,7 +129,6 @@ def _break_answer(monkeypatch):
 
 
 @pytest.mark.parametrize("fault", [_break_half, _break_answer])
-@pytest.mark.parametrize("cell", CELLS)
 def test_a_broken_timed_path_is_not_correct(tiny_cell, monkeypatch, cell, fault):
     spec = tiny_cell(cell)
     spec.traffic["check"]["steps"] = 1

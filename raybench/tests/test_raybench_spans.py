@@ -124,15 +124,13 @@ def test_walk_live_share_reads_the_program_counters():
         bp.reset_counts()
 
 
-@pytest.mark.parametrize("workload", ["sponza1m.grad", "sponza1m.path",
-                                      "bunny82k.grad_softmesh", "sponza1m.grad_materials"])
-def test_every_stage_metric_of_a_cell_reads_none_without_a_trace(root, workload):
+def test_every_stage_metric_of_a_cell_reads_none_without_a_trace(root, cell):
     from blink_torch.obs import profile as bp
 
     bp.reset_counts()
-    spec = bench.cell_spec(root, workload)
+    spec = bench.cell_spec(root, cell)
     names = [m["name"] for m in spec.metrics(True)
              if m["source"] in ("program_span", "program_counter")]
-    assert f"walk_live_share.{'render' if workload.endswith('path') else 'grad'}" in names
+    assert any(n.startswith("walk_live_share.") for n in names), names
     for n in names:
         assert bench.load_reader(root, n)(types.SimpleNamespace(profile=None)) is None, n
