@@ -7,8 +7,8 @@ against their plain torch versions.
 Phases (each asserts; any failure exits non-zero):
   1. build    — compile src/blink_torch/csrc/{wide_walk,sphere_pass,
                 binary_walk,sampler_hash}.cu, the counting builds of
-                wide_walk.cu (-DWIDE_WALK_COUNTS) and binary_walk.cu
-                (-DBINARY_WALK_COUNTS) and the empty build of
+                wide_walk.cu (-DWIDE_WALK_COUNTS, -DTLAS_WALK_COUNTS) and
+                binary_walk.cu (-DBINARY_WALK_COUNTS) and the empty build of
                 sphere_pass.cu (-DSPHERE_PASS_EMPTY) with nvcc, in
                 parallel, and print ptxas's register, shared-memory and
                 spill summaries;
@@ -169,6 +169,20 @@ Phases (each asserts; any failure exits non-zero):
                 (blink_torch.benchmarks.tlas_probe.run) on the card at
                 65,536 rays, the two-level walk's hits against the flat
                 walk's (hits equal, t within 1e-5), its JSON line printed;
+ 13c. tlas    — config 4 as published: the instanced hall
+                (sponza_scene_instanced, 999,690 triangles, 782 instances
+                of 7 objects) through backend 'tlas'. On the 1024x1024
+                frame's 1,048,576 primary rays and their shadow rays
+                towards the first light, both entries of
+                tlas_wide_group_walk once through their wrappers, held to
+                the plain walk (prim and blocked equal, t within 1e-6),
+                with the counting build's output and sums; then one frame
+                of the sponza preset uncut (raybench's sponza1m_tlas.path):
+                4 closest and 4 any-hit launches, each call held so on
+                every 16th of its live rays, timed on its full inputs
+                against its counting build, with its bound from the
+                counts; the kernels' registers and spills (the kernels
+                line's tlas_wide_group_walk row);
  14. shard    — a one-rank NCCL group: scene-sharded traversal of the
                 1024x1024 frame's primary rays and their shadow rays over
                 build_sharded_chunks(tris, 1) (9 padded chunks), its two
@@ -223,6 +237,7 @@ from blink_torch.kernels import _build  # noqa: E402
 from blink_torch.kernels import api as kapi  # noqa: E402
 from blink_torch.kernels import sphere as ks  # noqa: E402
 from blink_torch.kernels import traverse_packed as tp  # noqa: E402
+from blink_torch.kernels import traverse_tlas as tt  # noqa: E402
 from blink_torch.kernels import traverse_wide as tw  # noqa: E402
 from blink_torch.kernels.types import T_MAX, T_MIN  # noqa: E402
 from blink_torch.render import api as render_api  # noqa: E402
@@ -346,10 +361,11 @@ def reset_launches() -> None:
     tw.reset_launches()
     ks.reset_launches()
     tp.reset_launches()
+    tt.reset_launches()
 
 
 def launches() -> dict:
-    return {**tw.LAUNCHES, **ks.LAUNCHES, **tp.LAUNCHES}
+    return {**tw.LAUNCHES, **ks.LAUNCHES, **tp.LAUNCHES, **tt.LAUNCHES}
 
 
 def only(**counts) -> dict:
@@ -362,6 +378,7 @@ def phase_build() -> None:
     together."""
     t0 = time.perf_counter()
     builds = [(k, ()) for k in KERNELS] + [("wide_walk", tw.COUNTS_DEFINES),
+                                           ("wide_walk", tt.COUNTS_DEFINES),
                                            ("binary_walk", tp.COUNTS_DEFINES),
                                            ("sphere_pass", ks.EMPTY_DEFINES)]
     with ThreadPoolExecutor(len(builds)) as pool:
@@ -435,15 +452,17 @@ class Recorder:
     and outputs of the main path's calls."""
 
     NAMES = ("traverse_closest_wide", "traverse_anyhit_wide", "sphere_pass",
-             "sphere_merge", "traverse_closest_packed", "traverse_anyhit_packed")
+             "sphere_merge", "traverse_closest_packed", "traverse_anyhit_packed",
+             "traverse_closest_tlas", "traverse_anyhit_tlas")
 
     def __init__(self):
         self.calls = {"wide_closest": [], "wide_anyhit": [], "sphere_pass": [],
-                      "sphere_merge": [], "packed_closest": [], "packed_anyhit": []}
+                      "sphere_merge": [], "packed_closest": [], "packed_anyhit": [],
+                      "tlas_closest": [], "tlas_anyhit": []}
         self._orig = {n: getattr(kapi, n) for n in self.NAMES}
 
     def __enter__(self):
-        fc, fa, fs, fm, pc, pa = (self._orig[n] for n in self.NAMES)
+        fc, fa, fs, fm, pc, pa, tc, ta = (self._orig[n] for n in self.NAMES)
 
         def closest(o, d, chunks, t_far=None, leaf_mode=None):
             out = fc(o, d, chunks, t_far=t_far, leaf_mode=leaf_mode)
@@ -480,8 +499,18 @@ class Recorder:
                 (o.clone(), d.clone(), t_far.clone(), variant, out))
             return out
 
+        def tlas_closest(o, d, acc, t_far=None):
+            out = tc(o, d, acc, t_far=t_far)
+            self.calls["tlas_closest"].append((o.clone(), d.clone(), t_far, out))
+            return out
+
+        def tlas_anyhit(o, d, acc, t_far):
+            out = ta(o, d, acc, t_far)
+            self.calls["tlas_anyhit"].append((o.clone(), d.clone(), t_far.clone(), out))
+            return out
+
         for n, f in zip(self.NAMES, (closest, anyhit, sphere, merge, packed_closest,
-                                     packed_anyhit)):
+                                     packed_anyhit, tlas_closest, tlas_anyhit)):
             setattr(kapi, n, f)
         return self
 
@@ -2472,6 +2501,177 @@ def phase_sampler(scene, backend, dev) -> dict:
             "library_ms": None, "registers": max(regs), "spill_bytes": spill}
 
 
+#: FP32 operations of a two-level walk's instance entry: o by the 3x4
+#: affine (9 multiplies, 9 adds), d by its 3x3 part (9 multiplies, 6 adds)
+#: and the 3 reciprocals of the new direction.
+OPS_ENTRY = 36
+
+
+def tlas_hold(any_hit, o, d, acc, t_far, out, label):
+    """A two-level walk's output `out` on rays (o, d, t_far) against the
+    plain walk, prim and blocked equal and t within TOL, and the counting
+    build's output and sums against the same. Returns (max |t| error,
+    plain walk's host ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if any_hit:
+        want, per_ray = tt.anyhit_tlas_plain(o, d, acc, t_far, counts=True)
+    else:
+        t_w, want, per_ray = tt.closest_tlas_plain(o, d, acc, t_far, counts=True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got, sums = tt.walk_counts(any_hit, o, d, acc, t_far)
+    assert torch.equal(sums, per_ray.sum(1)), (label, sums.tolist(), per_ray.sum(1).tolist())
+    if any_hit:
+        assert torch.equal(out, want) and torch.equal(got, want), label
+        return 0.0, plain_ms
+    assert torch.equal(out[1], want) and torch.equal(got[1], want), label
+    err = max((out[0] - t_w).abs().max().item(), (got[0] - t_w).abs().max().item(), 0.0) \
+        if o.shape[0] else 0.0
+    assert err <= TOL, (label, err)
+    return err, plain_ms
+
+
+def tlas_bound(sums, n_read: int, n: int, closest: bool, t_far: bool) -> tuple:
+    """(bound ms, bound_by) of a two-level walk call over n rays from the
+    counting build's sums (TLAS and BLAS pops of 8 slab tests, triangle
+    tests, instance entries), against the ray bytes it must move: o and d
+    (24 B) of the n_read rays walked, t_far (4 B) a ray where given, and t
+    and prim (8 B) a ray, or a flag byte."""
+    tlas_pops, blas_pops, tests, entries = (int(x) for x in sums)
+    ops = ((tlas_pops + blas_pops) * 8 * OPS_SLAB + tests * OPS_TRI + entries * OPS_ENTRY)
+    nbytes = n_read * 24 + n * (4 if t_far else 0) + n * (8 if closest else 1)
+    ops_ms, bytes_ms = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def tlas_kernel_facts() -> dict:
+    """Registers and spilled bytes (ptxas) of both tlas_wide_group_walk
+    kernels, in the production build and in the counting build."""
+    out = {}
+    for tag, defines in (("", ()), ("counting_", tt.COUNTS_DEFINES)):
+        text = _build.log_path("wide_walk", defines).read_text()
+        regs, name = {}, None
+        for line in text.splitlines():
+            if m := re.search(r"Compiling entry function '(\w+)'", line):
+                name = m.group(1)
+            elif (m := re.search(r"Used (\d+) registers", line)) and name:
+                regs[name] = int(m.group(1))
+                name = None
+        tlas = [k for k in regs if "tlas_wide_group_walk" in k]
+        assert len(tlas) == 2, tlas
+        spills = _build.ptxas_spills(text)
+        out[f"{tag}registers"] = max(regs[k] for k in tlas)
+        out[f"{tag}spill_bytes"] = sum(spills.get(k, 0) for k in tlas)
+    return out
+
+
+def phase_tlas(dev, size: int = WIDTH, stride: int = 16, time_reps: int = 3) -> dict:
+    """Config 4 as published: the instanced hall (sponza_scene_instanced,
+    999,690 triangles, 782 instances of 7 objects) through backend 'tlas'.
+    On the size x size frame's primary rays and their shadow rays towards
+    the first light, each entry of tlas_wide_group_walk once through its
+    wrapper, held to the plain walk (prim and blocked equal, t within
+    TOL) with the counting build's output and sums; then one frame of the
+    sponza preset uncut (raybench's sponza1m_tlas.path) with its walk calls
+    recorded: 4 closest and 4 any-hit launches, each held so on every
+    stride-th of its live rays, timed on its full inputs against its
+    counting build, its bound from the counting build's sums. Returns the
+    kernels line's row."""
+    from blink_torch.bvh import tlas as tl
+    from blink_torch.scene.builders import sponza_scene_instanced
+
+    objects, insts, o2w, scene = sponza_scene_instanced(1_000_000)
+    scene = scene.replace(instances=tl.instances_of(objects, insts, o2w)).to(dev)
+    assert scene.n_triangles == 999_690 and scene.instances.o2w.shape[0] == 782
+    t0 = time.perf_counter()
+    backend = kapi.make_backend("tlas", scene)
+    acc = backend.tlas
+    log(f"[tlas] instanced hall {scene.n_triangles} triangles, {acc.w2o.shape[0]} instances "
+        f"of {acc.n_objects} objects: built in {time.perf_counter() - t0:.2f} s, "
+        f"{acc.nbytes} bytes")
+
+    o, d = primary_rays(scene, size, dev)
+    reset_launches()
+    t, prim = tt.traverse_closest_tlas(o, d, acc)
+    so, sd, stf = shadow_rays(o, d, t, prim, first_light_point(scene))
+    blocked = tt.traverse_anyhit_tlas(so, sd, acc, stf)
+    torch.cuda.synchronize()
+    counts = launches()
+    assert counts == only(tlas_closest=1, tlas_anyhit=1), counts
+    hit = float((prim >= 0).float().mean())
+    assert 0.5 < hit < 1.0, hit
+    err_c, plain_c = tlas_hold(False, o, d, acc, None, (t, prim), "primary")
+    err_a, plain_a = tlas_hold(True, so, sd, acc, stf, blocked, "shadow")
+    frame = {"ms": 0.0, "counting_ms": 0.0, "bound_ms": 0.0}
+    by_frame = []
+    for any_hit, (ro, rd, rtf), n_read in ((False, (o, d, None), o.shape[0]),
+                                           (True, (so, sd, stf), int((stf > 0).sum()))):
+        run = tt.traverse_anyhit_tlas if any_hit else tt.traverse_closest_tlas
+        ms = events_ms(lambda: run(ro, rd, acc, rtf), 5)
+        cms = events_ms(lambda: tt.walk_counts(any_hit, ro, rd, acc, rtf), 5)
+        _, sums = tt.walk_counts(any_hit, ro, rd, acc, rtf)
+        bound, by = tlas_bound(sums, n_read, ro.shape[0], not any_hit, any_hit)
+        by_frame.append((bound, by))
+        log(f"[tlas] {'any hit' if any_hit else 'closest'} on the {size}x{size} frame's "
+            f"{ro.shape[0]} {'shadow' if any_hit else 'primary'} rays: kernel {ms:.4f} ms, "
+            f"counting build {cms:.4f} ms ({cms / ms:.4f}x), counts {sums.tolist()}, bound "
+            f"{bound:.5f} ms ({by}), {bound / ms:.4f} of it")
+        frame["ms"] += ms
+        frame["counting_ms"] += cms
+        frame["bound_ms"] += bound
+    log(f"[tlas] primary hit {hit:.4f}, shadow blocked {float(blocked.float().mean()):.4f}: "
+        f"kernel equal to the plain walk and the counting build (prim, blocked, counts), "
+        f"max|dt| {max(err_c, err_a):.3g}; plain walk {plain_c:.1f} + {plain_a:.1f} ms")
+
+    cfg = get_config("sponza").override(backend="tlas")
+    assert (cfg.width, cfg.height, cfg.spp, cfg.max_depth, cfg.spp_block, cfg.compact,
+            cfg.rr_start) == (512, 512, 16, 4, 16, True, 1)
+    reset_launches()
+    with Recorder() as rec:
+        img = render(scene, cfg, device=dev, backend=backend)
+        torch.cuda.synchronize()
+    counts = launches()
+    log(f"[tlas] sponza preset frame through tlas: launches {nonzero(counts)}")
+    assert counts == only(tlas_closest=cfg.max_depth, tlas_anyhit=cfg.max_depth), counts
+    assert torch.isfinite(img).all() and img.mean() > 0
+    path = {"err": 0.0, "ms": 0.0, "counting_ms": 0.0, "bound_ms": 0.0}
+    for name in ("tlas_closest", "tlas_anyhit"):
+        any_hit = name == "tlas_anyhit"
+        run = tt.traverse_anyhit_tlas if any_hit else tt.traverse_closest_tlas
+        for b, (o, d, tf, out) in enumerate(rec.calls[name]):
+            n = o.shape[0]
+            live = torch.nonzero(tf > 0).squeeze(1)
+            sub = live[::stride]
+            part = out[sub] if any_hit else (out[0][sub], out[1][sub])
+            err, _ = tlas_hold(any_hit, o[sub].contiguous(), d[sub].contiguous(), acc,
+                               tf[sub].contiguous(), part, f"bounce {b} {name}")
+            ms = events_ms(lambda: run(o, d, acc, tf), time_reps)
+            cms = events_ms(lambda: tt.walk_counts(any_hit, o, d, acc, tf), time_reps)
+            _, sums = tt.walk_counts(any_hit, o, d, acc, tf)
+            bound, by = tlas_bound(sums, live.numel(), n, not any_hit, True)
+            log(f"[tlas] bounce {b} {name}: {n} rays, live {live.numel() / n:.4f}, every "
+                f"{stride}th live ray equal to the plain walk; kernel {ms:.4f} ms, counting "
+                f"build {cms:.4f} ms ({cms / ms:.4f}x), {int(sums[3]) / max(live.numel(), 1):.3f} "
+                f"BLAS walks begun a live ray, bound {bound:.5f} ms ({by})")
+            path["err"] = max(path["err"], err)
+            path["ms"] += ms
+            path["counting_ms"] += cms
+            path["bound_ms"] += bound
+    del rec
+    facts = tlas_kernel_facts()
+    log(f"[tlas] the frame's walks: kernel {path['ms']:.3f} ms, counting build "
+        f"{path['counting_ms']:.3f} ms ({path['counting_ms'] / path['ms']:.4f}x), bound "
+        f"{path['bound_ms']:.4f} ms, {path['bound_ms'] / path['ms']:.4f} of it; {facts}")
+    return {"name": "tlas_wide_group_walk", "route": "cuda", "source": SOURCE,
+            "replaces": None, "launches": 2, "max_abs_err": max(err_c, err_a, path["err"]),
+            "ms": frame["ms"], "plain_ms": plain_c + plain_a, "bound_ms": frame["bound_ms"],
+            "bound_by": max(by_frame)[1], "library_ms": None,
+            "counting_ms": frame["counting_ms"], "config4_launches": 2 * cfg.max_depth,
+            "config4_ms": path["ms"], "config4_counting_ms": path["counting_ms"],
+            "config4_bound_ms": path["bound_ms"], **facts}
+
+
 def timed_phase(tag: str, fn, *args, **kw):
     """fn(*args, **kw), its seconds logged under [tag]."""
     t0 = time.perf_counter()
@@ -2545,7 +2745,8 @@ def main() -> int:
     binary_rows = timed_phase("binary", phase_binary, scene, backend, dev)
     skip_rows, config2 = timed_phase("config2", phase_config2, dev)
     timed_phase("bvhvariants", phase_bvhvariants, dev)
-    rows += skip_rows + binary_rows + leafmode_rows + [sampler_row]
+    tlas_row = timed_phase("tlas", phase_tlas, dev)
+    rows += skip_rows + binary_rows + leafmode_rows + [sampler_row, tlas_row]
     from blink_torch.dist import mesh
 
     torch.cuda.set_device(dev)

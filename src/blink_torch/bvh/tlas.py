@@ -17,22 +17,33 @@ Structure:
 the triangle in instance_scene_triangles' flattened array, so refine and
 the flat walks see the same ids.
 
-This is the structural reference for instanced scenes, plain torch on any
-device; the production walks run over the flattened triangles
-(benchmarks/tlas_probe.py measures the two side by side).
+`traverse_two_level` is the structural reference for instanced scenes,
+plain torch on any device, with a Python loop over instances.
+
+The `tlas` backend walks another layout of the same idea (TlasBVH,
+build_tlas): each object's BLAS is a production wide chunk
+(build_chunked_wide: quantized 8-wide nodes, wide leaves of 44), and the
+TLAS is an 8-wide quantized tree from the same builders over the
+instances' world boxes, one instance a leaf child. kernels.traverse_tlas
+walks it: csrc/wide_walk.cu's tlas_wide_group_walk on a CUDA device, its
+plain version on the CPU.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import types
+
 import numpy as np
 import torch
 
 from blink_torch.bvh.build import EMPTY_BOX, build_boxtree, build_flat_bvh
-from blink_torch.kernels.traverse_wide import _slab
+from blink_torch.bvh.sah import build_sah_bvh
+from blink_torch.bvh.wide import WIDE_STACK_CAP, build_wide
+from blink_torch.kernels.traverse_wide import WideChunk, _slab, build_chunked_wide
 from blink_torch.kernels.triangle import triangle_t
 from blink_torch.kernels.types import T_MAX, T_MIN
-from blink_torch.scene.scene import Triangles
+from blink_torch.scene.scene import Instances, Triangles
 
 
 @dataclasses.dataclass(frozen=True)
@@ -271,3 +282,161 @@ def traverse_two_level(o, d, acc: TwoLevelBVH, t_min: float = T_MIN):
         best_t[lanes] = torch.where(found, bt, best_t[lanes])
         best_prim[lanes] = torch.where(found, bp + offsets[i], best_prim[lanes])
     return best_t, best_prim
+
+
+# --------------------------------------------------------------------------
+# The `tlas` backend's structure: a wide TLAS over wide BLAS chunks
+# (kernels.traverse_tlas walks it).
+# --------------------------------------------------------------------------
+
+#: The BLAS of each object: build_chunked_wide's production constants, one
+#: chunk an object.
+BLAS_CHUNK_TRIS = 340_000
+BLAS_WIDE_LEAF = 44
+
+
+@dataclasses.dataclass(frozen=True)
+class TlasBVH:
+    """The two-level structure the `tlas` backend walks (csrc/wide_walk.cu's
+    tlas_wide_group_walk has the layouts). `top` is the TLAS: a quantized
+    wide chunk over the instances' world boxes whose tri_id names the
+    instance of each leaf record. The BLAS tables of all objects lie end to
+    end: object b owns wide nodes [node_off[b], node_off[b + 1]) and records
+    [rec_off[b], rec_off[b + 1]), indexed locally inside."""
+
+    top: WideChunk
+    child: torch.Tensor  # (sum n_wide * 24,) i32
+    nbox: torch.Tensor  # (sum n_wide * 8,) f32
+    perm: torch.Tensor  # (sum n_wide * 8,) i32
+    tri: torch.Tensor  # (sum P, 12) f32
+    tri_id: torch.Tensor  # (sum P,) i32 object-local triangle ids
+    w2o: torch.Tensor  # (I, 3, 4) f32 world -> object affines
+    #: (I, 4) i32: the instance's object's first node and first record, its
+    #: first global triangle id (tri_offset), its object.
+    meta: torch.Tensor
+    node_off: tuple
+    rec_off: tuple
+    blas_stack: tuple  # each object's max_stack
+
+    def to(self, device) -> "TlasBVH":
+        moved = {f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)
+                 if isinstance(getattr(self, f.name), torch.Tensor)}
+        return dataclasses.replace(self, top=WideChunk.from_host(self.top, device), **moved)
+
+    @property
+    def n_objects(self) -> int:
+        return len(self.node_off) - 1
+
+    def objects(self) -> list[WideChunk]:
+        """Each object's BLAS as a WideChunk of views into the tables."""
+        out = []
+        for b in range(self.n_objects):
+            n0, n1 = self.node_off[b], self.node_off[b + 1]
+            r0, r1 = self.rec_off[b], self.rec_off[b + 1]
+            out.append(WideChunk(child=self.child[24 * n0:24 * n1], nbox=self.nbox[8 * n0:8 * n1],
+                                 perm=self.perm[8 * n0:8 * n1], tri=self.tri[r0:r1],
+                                 tri_id=self.tri_id[r0:r1], max_stack=self.blas_stack[b]))
+        return out
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of all the structure's tensors."""
+        tensors = [v for v in vars(self).values() if isinstance(v, torch.Tensor)]
+        tensors += [v for v in vars(self.top).values() if isinstance(v, torch.Tensor)]
+        return sum(v.numel() * v.element_size() for v in tensors)
+
+
+def instances_of(object_tris: list, obj_of_inst, o2w) -> Instances:
+    """The Instances group of a list of object-space Triangles placed by
+    obj_of_inst (I,) and o2w (I, 3, 4)."""
+    verts, idx, start, nv = [], [], [0], 0
+    for t in object_tris:
+        v, f = _np(t.verts).astype(np.float32), _np(t.idx).astype(np.int64)
+        verts.append(v)
+        idx.append(f + nv)
+        nv += v.shape[0]
+        start.append(start[-1] + f.shape[0])
+    i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32))  # noqa: E731
+    return Instances(verts=torch.from_numpy(np.concatenate(verts)), idx=i32(np.concatenate(idx)),
+                     tri_start=i32(start), obj_of_inst=i32(_np(obj_of_inst)),
+                     o2w=torch.from_numpy(np.ascontiguousarray(_np(o2w), np.float32)))
+
+
+def _round_out(lo64: np.ndarray, hi64: np.ndarray):
+    """float64 bounds to the f32 box that holds them."""
+    lo, hi = lo64.astype(np.float32), hi64.astype(np.float32)
+    lo = np.where(lo > lo64, np.nextafter(lo, np.float32(-np.inf)), lo)
+    hi = np.where(hi < hi64, np.nextafter(hi, np.float32(np.inf)), hi)
+    return lo.astype(np.float32), hi.astype(np.float32)
+
+
+def build_tlas(inst: Instances) -> TlasBVH:
+    """The `tlas` backend's structure, on the host (CPU tensors; `.to` moves
+    it). Each object's BLAS is built once, in object space, by
+    build_chunked_wide with the production constants; the TLAS is an SAH
+    tree with one instance a leaf, collapsed by build_wide (quantized, wide
+    leaves of 1), over the instances' world boxes: the bounds of their
+    objects' vertices mapped by o2w in float64, rounded outwards."""
+    verts = _np(inst.verts).astype(np.float32)
+    idx = _np(inst.idx).astype(np.int64)
+    start = _np(inst.tri_start).astype(np.int64)
+    obj_of_inst = _np(inst.obj_of_inst).astype(np.int64)
+    o2w = _np(inst.o2w).astype(np.float32)
+    n_obj, n_inst = start.shape[0] - 1, obj_of_inst.shape[0]
+    if n_inst == 0 or n_obj == 0:
+        raise ValueError("the tlas backend needs at least one object and one instance")
+    if obj_of_inst.min() < 0 or obj_of_inst.max() >= n_obj:
+        raise ValueError(f"obj_of_inst names an object outside [0, {n_obj})")
+
+    blas, obj_verts = [], []
+    for b in range(n_obj):
+        f = idx[start[b]:start[b + 1]]
+        if f.shape[0] == 0:
+            raise ValueError(f"object {b} has no triangles")
+        chunks = build_chunked_wide(
+            types.SimpleNamespace(verts=torch.from_numpy(verts), idx=torch.from_numpy(f)),
+            chunk_tris=BLAS_CHUNK_TRIS, wide_leaf=BLAS_WIDE_LEAF, quant=True, row_tables=False)
+        if len(chunks) != 1:
+            raise ValueError(f"object {b} has more than {BLAS_CHUNK_TRIS} triangles")
+        blas.append(chunks[0])
+        obj_verts.append(verts[np.unique(f)].astype(np.float64))
+    node_off = np.cumsum([0] + [c.n_wide for c in blas])
+    rec_off = np.cumsum([0] + [c.tri.shape[0] for c in blas])
+
+    # World boxes of the instances, and their w2o and meta rows.
+    ilo = np.zeros((n_inst, 3), np.float64)
+    ihi = np.zeros((n_inst, 3), np.float64)
+    w2o = np.zeros((n_inst, 3, 4), np.float32)
+    meta = np.zeros((n_inst, 4), np.int64)
+    n_tris = start[1:] - start[:-1]
+    tri_offset = np.cumsum(np.concatenate([[0], n_tris[obj_of_inst]]))[:-1]
+    for i in range(n_inst):
+        b = int(obj_of_inst[i])
+        m = o2w[i].astype(np.float64)
+        wv = obj_verts[b] @ m[:, :3].T + m[:, 3]
+        ilo[i], ihi[i] = wv.min(axis=0), wv.max(axis=0)
+        rinv = np.linalg.inv(m[:, :3])
+        w2o[i, :, :3] = rinv
+        w2o[i, :, 3] = -rinv @ m[:, 3]
+        meta[i] = (node_off[b], rec_off[b], tri_offset[i], b)
+    if tri_offset[-1] + n_tris[obj_of_inst[-1]] >= 2**31:
+        raise ValueError("more than 2**31 - 1 instanced triangles")
+    lo, hi = _round_out(ilo, ihi)
+    # One "triangle" an instance, (lo, hi, mid), whose bounds and centroid are
+    # the box's: the SAH build and the collapse then see the boxes.
+    mid = (0.5 * (lo.astype(np.float64) + hi)).astype(np.float32)
+    box_tris = np.stack([lo, hi, mid], axis=1).reshape(-1, 3)
+    top = build_wide(build_sah_bvh(box_tris, np.arange(3 * n_inst).reshape(-1, 3), 1),
+                     wide_leaf=1, quant=True, row_tables=False)
+    if top.max_stack + max(c.max_stack for c in blas) > WIDE_STACK_CAP:
+        raise ValueError(f"TLAS stack {top.max_stack} and BLAS stack "
+                         f"{max(c.max_stack for c in blas)} exceed {WIDE_STACK_CAP}")
+
+    cat = lambda attr: torch.from_numpy(np.ascontiguousarray(  # noqa: E731
+        np.concatenate([getattr(c, attr) for c in blas])))
+    return TlasBVH(
+        top=WideChunk.from_host(top, "cpu"), child=cat("child"), nbox=cat("nbox"),
+        perm=cat("perm"), tri=cat("tri"), tri_id=cat("tri_id"),
+        w2o=torch.from_numpy(w2o), meta=torch.from_numpy(meta.astype(np.int32)),
+        node_off=tuple(int(x) for x in node_off), rec_off=tuple(int(x) for x in rec_off),
+        blas_stack=tuple(c.max_stack for c in blas))

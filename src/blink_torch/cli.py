@@ -16,7 +16,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--max-depth", dest="max_depth", type=int, default=None)
     p.add_argument("--integrator", default=None, choices=["primary", "direct", "path"])
     p.add_argument("--backend", default=None,
-                   choices=["auto", "brute", "bvh", "wide", "pallas"])
+                   choices=["auto", "brute", "bvh", "wide", "pallas", "tlas"],
+                   help="tlas: the two-level BVH of a scene with `instances`")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--deterministic", action="store_true", default=None)
     p.add_argument("--scene", default=None, help="cornell|bunny|sponza|obj:<path>")
@@ -193,7 +194,7 @@ def build_parser() -> argparse.ArgumentParser:
     pb.add_argument("--config", default="sponza")
     pb.add_argument("--quick", action="store_true", help="cap size, spp and triangles")
     pb.add_argument("--backend", default=None,
-                    choices=["auto", "brute", "bvh", "wide", "pallas"],
+                    choices=["auto", "brute", "bvh", "wide", "pallas", "tlas"],
                     help="override the config's backend (Cornell's auto is brute: no kernel)")
     pb.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device; 'cpu' for the plain "

@@ -1,9 +1,10 @@
 """Config system: the same frozen dataclasses and presets as `blink.config`,
 so a config JSON written by either package loads in the other.
 
-Backends of the port: `auto | brute | bvh | wide` (`pallas` is accepted
-as an alias of `wide`, the name `blink` gives the same traversal). `auto`
-resolves to `brute` at 64 triangles or fewer, else to `wide`
+Backends of the port: `auto | brute | bvh | wide | tlas` (`pallas` is
+accepted as an alias of `wide`, the name `blink` gives the same traversal;
+`tlas` walks the two-level BVH of a scene that carries `instances`).
+`auto` resolves to `brute` at 64 triangles or fewer, else to `wide`
 (kernels.api.make_backend).
 """
 from __future__ import annotations
@@ -21,7 +22,7 @@ class RenderConfig:
     spp: int = 1
     max_depth: int = 4
     integrator: str = "direct"  # primary | direct | path
-    backend: str = "auto"  # auto | brute | bvh | wide (alias: pallas)
+    backend: str = "auto"  # auto | brute | bvh | wide (alias: pallas) | tlas
     seed: int = 0
     jitter: bool = True
     # Deterministic sampling: center-pixel rays + fixed-point light samples

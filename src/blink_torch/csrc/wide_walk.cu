@@ -243,12 +243,15 @@ __device__ __forceinline__ int lowest(unsigned m) {
 // starts). Each turn loads up to kBatch records of the leaf, each load
 // predicated on the leaf's end, and tests them in slot order against the
 // running best with a strict <. Returns true at an any hit.
-template <bool ANY_HIT, int MODE>
+// COUNT (the two-level walk's counting build) adds the tests to *n_tests, a
+// turn's at its start (an add a turn, not a test: the count costs the walk
+// little), less those an any hit leaves untested.
+template <bool ANY_HIT, int MODE, bool COUNT = false>
 __device__ __forceinline__ bool leaf_loop(
     const float4* __restrict__ recs, const int* __restrict__ brow, int s,
     int e, unsigned lf_k, int pm, const int (&ref)[8], const int (&cnt)[8],
     float ox, float oy, float oz, float dx, float dy, float dz, float t_min,
-    float& best, int& best_hit, int i) {
+    float& best, int& best_hit, int i, int* n_tests = nullptr) {
   // Float4s a record: tri's 48-byte records [v0 e1 e2], tbat's 64-byte
   // ones [v0 e1 e2 gid slot] and padding.
   constexpr int kRec = MODE == kGroup ? 3 : 4;
@@ -261,6 +264,7 @@ __device__ __forceinline__ bool leaf_loop(
     }
     float4 ra[kBatch], rb[kBatch];
     float rc[kBatch];  // e2.z, the only float of the third float4 read
+    if constexpr (COUNT) *n_tests += min(e - s, kBatch);
 #pragma unroll
     for (int j = 0; j < kBatch; ++j) {
       if (s + j < e) {
@@ -278,6 +282,7 @@ __device__ __forceinline__ bool leaf_loop(
                                   make_float4(rc[j], 0.0f, 0.0f, 0.0f), t_min,
                                   best);
         if (t < best) {
+          if constexpr (ANY_HIT && COUNT) *n_tests -= min(e - s, kBatch) - (j + 1);
           if (ANY_HIT) return true;
           best = t;
           best_hit = s + j;
@@ -502,6 +507,233 @@ const void* kernel_of(int mode) {
   return nullptr;
 }
 
+// ---------------------------------------------------------------------------
+// The two-level walk (tlas_wide_group_walk<ANY_HIT>; bvh/tlas.py builds its
+// tables, kernels/traverse_tlas.py launches it and holds its plain
+// version). It replaces no TPU kernel: blink's bvh/tlas.py is a structural
+// reference in plain JAX. A TLAS, an 8-wide quantized BVH over the
+// instances' world boxes whose leaf children each hold one instance record,
+// is walked with the world ray; at each instance the ray enters, it is
+// moved into object space (the instance's w2o: a rounded multiply, then a
+// rounded add, left to right) and its object's BLAS, a production chunk
+// (quantized 8-wide nodes, wide leaves of 44), is walked by group's pop and
+// leaf loop from the best t so far. An affine map
+// keeps the ray parameter, so object-space t compares with the world best
+// directly. The BLAS tables of all objects lie end to end; an instance
+// record names its object's first node and first record, and the global id
+// of its first triangle (prim = that + the object-local id).
+//
+// Order of work, which the plain version repeats ray for ray: one stack
+// holds TLAS nodes (>= 0) and instance records (-1 - record); a TLAS pop
+// slab-tests the node's children against [t_min, best] and pushes every
+// child that passed far to near (a leaf child as its records, last first),
+// so the nearest pops next; a BLAS walk runs on the stack above the TLAS
+// entries. Any hit stops at the first occluder in [t_min, min(t_far,
+// T_MAX)) of any instance.
+//
+// What bounds it: as the flat walk, chains of dependent loads and lanes
+// that diverge, now through two trees; the entry adds a 64-byte instance
+// record and two affine maps. The pop of both trees is quant_pop,
+// wide_group_walk's quantized pop as a function. That kernel keeps its own
+// copy of the pop and of the next-node step: called from its QUANT branch,
+// quant_pop moves the register counts of 3 of its 16 variants in ptxas's
+// report (row and skip ones), and with the next-node step and the octant
+// shared as well, of 9. On an H100 at 700 W the walks take 21.4 ms of a
+// sponza1m_tlas.path frame, 1.24x the flat walk's 17.25 ms on the same
+// rays, at 1.8% of their operations bound, with 152 registers and 12 warps
+// an SM (PERF.md, section 6, row 10).
+//
+// A build with -DTLAS_WALK_COUNTS (kernels/traverse_tlas.py::walk_counts)
+// counts each ray's TLAS pops, BLAS pops, triangle tests and BLAS walks
+// begun in registers, and adds them to counts[0..3] with one atomic add a
+// warp a counter.
+#ifdef TLAS_WALK_COUNTS
+constexpr bool kTlasCounts = true;
+#else
+constexpr bool kTlasCounts = false;
+#endif
+
+struct TlasCounts {
+  int tlas_pops = 0, blas_pops = 0, tests = 0, entries = 0;
+};
+
+// The quantized pop of node `node` (wide_group_walk's QUANT branch): the
+// children that pass the slab test against [t_min, t_max], as masks by
+// slot of leaf and internal children, each slot's ref and count; returns
+// the near-first order of the ray's octant.
+__device__ __forceinline__ int quant_pop(
+    const int4* __restrict__ child, const float4* __restrict__ nbox,
+    const int* __restrict__ perm, int node, int octant, float ox, float oy,
+    float oz, float ix, float iy, float iz, float t_min, float t_max,
+    unsigned& leaf, unsigned& inner, int (&ref)[8], int (&cnt)[8]) {
+  const int pm = __ldg(perm + node * 8 + octant);
+  const int4* cw = child + node * 6;
+  const float4* fr = nbox + node * 2;
+  int w[24];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    const int4 v = __ldg(cw + j);
+    w[4 * j] = v.x;
+    w[4 * j + 1] = v.y;
+    w[4 * j + 2] = v.z;
+    w[4 * j + 3] = v.w;
+  }
+  const float4 f0 = __ldg(fr), f1 = __ldg(fr + 1);  // ox oy oz sx, sy sz
+  leaf = 0;
+  inner = 0;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int w0 = w[3 * c], w1 = w[3 * c + 1];
+    ref[c] = w[3 * c + 2];
+    cnt[c] = w0 >> 24;
+    const bool hit = slab(
+        ox, oy, oz, ix, iy, iz, t_min, t_max,
+        dequant(f0.x, w0 & 255, f0.w), dequant(f0.y, (w0 >> 8) & 255, f1.x),
+        dequant(f0.z, (w0 >> 16) & 255, f1.y), dequant(f0.x, w1 & 255, f0.w),
+        dequant(f0.y, (w1 >> 8) & 255, f1.x),
+        dequant(f0.z, (w1 >> 16) & 255, f1.y));
+    leaf |= (hit && cnt[c] > 0 ? 1u : 0u) << c;
+    inner |= (hit && cnt[c] == 0 && ref[c] > 0 ? 1u : 0u) << c;
+  }
+  return pm;
+}
+
+__device__ __forceinline__ int octant_of(float dx, float dy, float dz) {
+  return (dx >= 0.0f ? 1 : 0) | (dy >= 0.0f ? 2 : 0) | (dz >= 0.0f ? 4 : 0);
+}
+
+// One ray's two-level walk from `best` (closest hit: the best t so far, and
+// best_prim; any hit: the bound). Returns true at an any hit.
+template <bool ANY_HIT>
+__device__ __forceinline__ bool tlas_ray(
+    float ox, float oy, float oz, float dx, float dy, float dz, float t_min,
+    float& best, int& best_prim, const int4* __restrict__ tchild,
+    const float4* __restrict__ tnbox, const int* __restrict__ tperm,
+    const int* __restrict__ tinst, const float4* __restrict__ iw2o,
+    const int4* __restrict__ imeta, const int4* __restrict__ bchild,
+    const float4* __restrict__ bnbox, const int* __restrict__ bperm,
+    const float4* __restrict__ brecs, const int* __restrict__ btri_id,
+    TlasCounts& c) {
+  const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
+  const int octant = octant_of(dx, dy, dz);
+  int stack[WIDE_STACK_CAP];
+  int sp = 0;
+  stack[sp++] = 0;
+  int ref[8], cnt[8];
+  while (sp > 0) {
+    const int e = stack[--sp];
+    unsigned leaf, inner;
+    if (e >= 0) {  // a TLAS node
+      if constexpr (kTlasCounts) ++c.tlas_pops;
+      const int pm = quant_pop(tchild, tnbox, tperm, e, octant, ox, oy, oz, ix,
+                               iy, iz, t_min, best, leaf, inner, ref, cnt);
+      for (unsigned m = by_order(leaf | inner, pm); m;) {
+        const int k = 31 - __clz(static_cast<int>(m));
+        m &= ~(1u << k);
+        const int c8 = (pm >> (3 * k)) & 7;
+        const int r = pick8(ref, c8);
+        if ((inner >> c8) & 1u) {
+          stack[sp++] = r;
+        } else {
+          for (int j = pick8(cnt, c8) - 1; j >= 0; --j) stack[sp++] = -1 - (r + j);
+        }
+      }
+      continue;
+    }
+    // An instance: the ray in object space, its object's BLAS.
+    if constexpr (kTlasCounts) ++c.entries;
+    const int inst = __ldg(tinst + (-1 - e));
+    const int4 meta = __ldg(imeta + inst);  // first node, first record, first prim
+    const float4 m0 = __ldg(iw2o + 3 * inst), m1 = __ldg(iw2o + 3 * inst + 1),
+                 m2 = __ldg(iw2o + 3 * inst + 2);
+    const float px = ox * m0.x + oy * m0.y + oz * m0.z + m0.w;
+    const float py = ox * m1.x + oy * m1.y + oz * m1.z + m1.w;
+    const float pz = ox * m2.x + oy * m2.y + oz * m2.z + m2.w;
+    const float qx = dx * m0.x + dy * m0.y + dz * m0.z;
+    const float qy = dx * m1.x + dy * m1.y + dz * m1.z;
+    const float qz = dx * m2.x + dy * m2.y + dz * m2.z;
+    const float jx = 1.0f / qx, jy = 1.0f / qy, jz = 1.0f / qz;
+    const int oct = octant_of(qx, qy, qz);
+    const int4* cw = bchild + 6 * meta.x;
+    const float4* fr = bnbox + 2 * meta.x;
+    const int* pmb = bperm + 8 * meta.x;
+    const float4* recs = brecs + 3 * meta.y;
+    int best_hit = -1;
+    const int base = sp;
+    int node = 0;
+    while (node >= 0) {  // group's walk, on the stack above the TLAS entries
+      if constexpr (kTlasCounts) ++c.blas_pops;
+      const int pm = quant_pop(cw, fr, pmb, node, oct, px, py, pz, jx, jy, jz,
+                               t_min, best, leaf, inner, ref, cnt);
+      unsigned in_k = by_order(inner, pm);
+      if (in_k) {
+        node = pick8(ref, (pm >> (3 * lowest(in_k))) & 7);
+        for (in_k &= in_k - 1; in_k;) {
+          const int k = 31 - __clz(static_cast<int>(in_k));
+          in_k &= ~(1u << k);
+          stack[sp++] = pick8(ref, (pm >> (3 * k)) & 7);
+        }
+      } else {
+        node = sp > base ? stack[--sp] : -1;
+      }
+      if (leaf_loop<ANY_HIT, kGroup, kTlasCounts>(
+              recs, nullptr, 0, 0, by_order(leaf, pm), pm, ref, cnt, px, py,
+              pz, qx, qy, qz, t_min, best, best_hit, 0, &c.tests)) {
+        return true;
+      }
+    }
+    if (!ANY_HIT && best_hit >= 0) {
+      best_prim = meta.z + __ldg(btri_id + meta.y + best_hit);
+    }
+  }
+  return false;
+}
+
+// Closest hit: t holds each ray's bound (min(t_far, T_MAX)) and receives its
+// best t; prim receives the global triangle id or -1. Any hit: t is t_far,
+// read only; blocked receives whether a triangle lies in [t_min,
+// min(t_far, T_MAX)). Every ray is written.
+template <bool ANY_HIT>
+__global__ void __launch_bounds__(kThreads) tlas_wide_group_walk(
+    const float* __restrict__ o, const float* __restrict__ d,
+    float* __restrict__ t_io, int* __restrict__ prim, bool* __restrict__ blocked,
+    const int4* __restrict__ tchild, const float4* __restrict__ tnbox,
+    const int* __restrict__ tperm, const int* __restrict__ tinst,
+    const float4* __restrict__ iw2o, const int4* __restrict__ imeta,
+    const int4* __restrict__ bchild, const float4* __restrict__ bnbox,
+    const int* __restrict__ bperm, const float4* __restrict__ brecs,
+    const int* __restrict__ btri_id, unsigned long long* __restrict__ counts,
+    int n, float t_min) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  TlasCounts c;
+  if (i < n) {
+    float best = ANY_HIT ? nan_min(t_io[i], kTMax) : t_io[i];
+    int best_prim = -1;
+    const bool hit = tlas_ray<ANY_HIT>(
+        o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i], d[3 * i + 1],
+        d[3 * i + 2], t_min, best, best_prim, tchild, tnbox, tperm, tinst,
+        iw2o, imeta, bchild, bnbox, bperm, brecs, btri_id, c);
+    if (ANY_HIT) {
+      blocked[i] = hit;
+    } else {
+      t_io[i] = best;
+      prim[i] = best_prim;
+    }
+  }
+  if constexpr (kTlasCounts) {
+    // Every lane of the (whole) warp gets here; lane 0 adds the warp's sums.
+    __syncwarp();
+    const int v[4] = {c.tlas_pops, c.blas_pops, c.tests, c.entries};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      unsigned long long s = static_cast<unsigned long long>(v[k]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
+      if ((threadIdx.x & 31) == 0 && s != 0) atomicAdd(counts + k, s);
+    }
+  }
+}
+
 }  // namespace
 
 // One launch of the variant (any_hit, quant, mode) over one chunk.
@@ -555,6 +787,44 @@ extern "C" int wide_walk_attributes(int any_hit, int quant, int mode,
   out[3] = kThreads;
   return static_cast<int>(
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], f, out[3], 0));
+}
+
+// One launch of the two-level walk (any_hit 0: closest hit, 1: any hit)
+// over n rays. o, d: (n, 3) f32; t: (n,) f32 (closest: in/out; any hit:
+// t_far); prim: (n,) i32 out (closest) or null; blocked: (n,) bool out (any
+// hit) or null. TLAS: tchild (N*24,) i32, tnbox (N*8,) f32, tperm (N*8,) i32,
+// tinst (records,) i32 (the instance of each leaf record). Instances: iw2o
+// (I, 3, 4) f32, imeta (I, 4) i32 [first BLAS node, first BLAS record,
+// first global triangle, object]. BLAS tables of every object end to end:
+// bchild, bnbox, bperm as the TLAS's, brecs (P, 12) f32, btri_id (P,) i32
+// object-local ids. counts: (4,) int64 added to by the counting build
+// (null otherwise). Every table 16-byte aligned. Returns cudaGetLastError().
+extern "C" int tlas_walk_launch(
+    int any_hit, const float* o, const float* d, float* t, int* prim,
+    bool* blocked, const void* tchild, const float* tnbox, const int* tperm,
+    const int* tinst, const float* iw2o, const int* imeta, const void* bchild,
+    const float* bnbox, const int* bperm, const float* brecs,
+    const int* btri_id, long long* counts, int n, float t_min,
+    cudaStream_t stream) {
+  const int blocks = (n + kThreads - 1) / kThreads;
+  const auto tc = static_cast<const int4*>(tchild);
+  const auto tn = reinterpret_cast<const float4*>(tnbox);
+  const auto w2o = reinterpret_cast<const float4*>(iw2o);
+  const auto meta = reinterpret_cast<const int4*>(imeta);
+  const auto bc = static_cast<const int4*>(bchild);
+  const auto bn = reinterpret_cast<const float4*>(bnbox);
+  const auto br = reinterpret_cast<const float4*>(brecs);
+  const auto cn = reinterpret_cast<unsigned long long*>(counts);
+  if (any_hit) {
+    tlas_wide_group_walk<true><<<blocks, kThreads, 0, stream>>>(
+        o, d, t, prim, blocked, tc, tn, tperm, tinst, w2o, meta, bc, bn, bperm,
+        br, btri_id, cn, n, t_min);
+  } else {
+    tlas_wide_group_walk<false><<<blocks, kThreads, 0, stream>>>(
+        o, d, t, prim, blocked, tc, tn, tperm, tinst, w2o, meta, bc, bn, bperm,
+        br, btri_id, cn, n, t_min);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 #ifdef WIDE_WALK_COUNTS

@@ -13,11 +13,18 @@
           production chunks carry no row tables, so they always walk
           'group'; a Backend built over chunks with row tables (bref/tbat)
           honours BLINK_LEAF_MODE=row|stream;
+  tlas  — the two-level BVH of the scene's `instances` (bvh.tlas): a wide
+          TLAS over the instances, each object's BLAS a production wide
+          chunk; kernels.traverse_tlas walks it (tlas_wide_group_walk on
+          a CUDA device, its plain torch version on the CPU). Prims are
+          the flattened triangles' ids, so everything after the walk is
+          wide's;
   auto  — brute at 64 triangles or fewer, else wide (`blink`'s rule).
 
 Spheres go through `sphere_merge` (closest hit) and `sphere_pass`
-(occlusion) on bvh and wide (the sphere kernel on a CUDA device). Traversal is a topology oracle: every input is detached and
-no output carries a gradient; gradients come from diff.hitrefine.
+(occlusion) on bvh, wide and tlas (the sphere kernel on a CUDA device).
+Traversal is a topology oracle: every input is detached and no output
+carries a gradient; gradients come from diff.hitrefine.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from blink_torch.bvh import tlas as tl
 from blink_torch.bvh.build import build_flat_bvh
 from blink_torch.kernels.bruteforce import intersect_brute, occluded_brute
 from blink_torch.kernels.sphere import sphere_merge, sphere_pass
@@ -34,6 +42,12 @@ from blink_torch.kernels.traverse_packed import (
     pack_bvh_planes,
     traverse_anyhit_packed,
     traverse_closest_packed,
+)
+from blink_torch.kernels.traverse_tlas import (
+    COUNTERS,
+    traverse_anyhit_tlas,
+    traverse_closest_tlas,
+    walk_counts,
 )
 from blink_torch.kernels.traverse_wide import (
     WideChunk,
@@ -46,7 +60,7 @@ from blink_torch.obs import profile
 from blink_torch.scene.scene import Scene
 from blink_torch.scene.shade import pack_tri_shade_np
 
-BACKENDS = ("auto", "brute", "bvh", "wide", "pallas")
+BACKENDS = ("auto", "brute", "bvh", "wide", "pallas", "tlas")
 
 #: `auto` picks brute up to this many triangles.
 BRUTE_MAX_TRIS = 64
@@ -54,12 +68,14 @@ BRUTE_MAX_TRIS = 64
 
 @dataclasses.dataclass(frozen=True)
 class Backend:
-    name: str  # "brute" | "bvh" | "wide"
+    name: str  # "brute" | "bvh" | "wide" | "tlas"
     #: wide: the WideChunks; bvh: one PackedBVH.
     chunks: list[WideChunk] | list[PackedBVH] | None = None
     #: (T, 16) packed per-triangle shading table (scene.shade). None:
     #: render_image packs it in the graph from the live scene.
     shade: torch.Tensor | None = None
+    #: tlas: the two-level structure.
+    tlas: tl.TlasBVH | None = None
 
     def intersect(self, o, d, scene: Scene, alive=None) -> Hit:
         """Closest hit. `alive`: optional lane mask — dead lanes report the
@@ -79,6 +95,10 @@ class Backend:
             best_t, tri_prim = traverse_closest_packed(o, d, self.chunks, variant="skip")
             if alive is not None:
                 tri_prim = torch.where(alive, tri_prim, -1)
+        elif self.name == "tlas":
+            tf = None if alive is None else torch.where(alive, T_MAX, 0.0).to(torch.float32)
+            _count_tlas(False, o, d, self.tlas, tf)
+            best_t, tri_prim = traverse_closest_tlas(o, d, self.tlas, t_far=tf)
         else:
             tf = None
             if alive is not None:
@@ -118,6 +138,9 @@ class Backend:
             return occluded_brute(o, d, scene, t_far)
         if self.name == "bvh":
             blocked = traverse_anyhit_packed(o, d, self.chunks, t_far, variant="skip")
+        elif self.name == "tlas":
+            _count_tlas(True, o, d, self.tlas, t_far)
+            blocked = traverse_anyhit_tlas(o, d, self.tlas, t_far)
         else:
             blocked = traverse_anyhit_wide(o, d, self.chunks, t_far, leaf_mode=None)
         if scene.n_spheres > 0:
@@ -129,13 +152,43 @@ class Backend:
         return blocked
 
 
+#: The tlas walk's counters are taken on every TLAS_SAMPLE-th lane of a
+#: call: odd, so that the sample steps through the samples a pixel that
+#: render packs side by side.
+TLAS_SAMPLE = 61
+
+
+def _count_tlas(any_hit: bool, o, d, acc: tl.TlasBVH, t_far) -> None:
+    """While a profiler records, the call's counters tlas_pops, blas_pops,
+    tri_tests and blas_entries (BLAS walks begun), each .closest or
+    .anyhit: every TLAS_SAMPLE-th lane is copied now (one launch) and
+    walked by walk_counts when the counters are read, after the recording,
+    so the recorded walk is the production build; the sums are scaled to
+    the call's lanes."""
+    n = o.shape[0]
+    if not profile.recording() or n == 0:
+        return
+    s = slice(None, None, TLAS_SAMPLE)
+    bounded = t_far is not None
+    lanes = torch.cat([o[s], d[s]] + ([t_far[s, None]] if bounded else []), 1)
+
+    def later():
+        tf = lanes[:, 6] if bounded else None
+        _, c = walk_counts(any_hit, lanes[:, 0:3], lanes[:, 3:6], acc, tf)
+        m = lanes.shape[0]
+        return list(torch.div(c * n + m // 2, m, rounding_mode="floor"))
+
+    kind = "anyhit" if any_hit else "closest"
+    profile.count_later([f"{name}.{kind}" for name in COUNTERS], later)
+
+
 def make_backend(name: str, scene: Scene) -> Backend:
     """Build the backend's acceleration data on the host and place it on
     the scene's device. bvh: `blink`'s build_flat_bvh (Morton, leaves of
     16). wide: the production constants of `blink`'s pallas backend:
     340k-triangle Morton chunks, wide leaves of 44, quantized child boxes
     without row tables, chunks near to far from the build-time camera
-    origin."""
+    origin. tlas: bvh.tlas.build_tlas of the scene's `instances`."""
     if name not in BACKENDS:
         raise KeyError(f"unknown backend '{name}'; choices: {BACKENDS}")
     if name == "auto":
@@ -144,8 +197,13 @@ def make_backend(name: str, scene: Scene) -> Backend:
         return Backend(name="brute")
     if scene.n_triangles == 0:
         raise ValueError(f"the {name} backend needs triangles; use 'brute'")
+    if name == "tlas" and scene.instances is None:
+        raise ValueError("the tlas backend needs the scene's `instances` group "
+                         "(Scene.instances); this scene has none")
     device = scene.device
     shade = torch.as_tensor(pack_tri_shade_np(scene.triangles)).to(device)
+    if name == "tlas":
+        return Backend(name="tlas", shade=shade, tlas=tl.build_tlas(scene.instances).to(device))
     if name == "bvh":
         tris = scene.triangles
         flat = build_flat_bvh(tris.verts.detach().cpu().numpy(), tris.idx.cpu().numpy())

@@ -31,8 +31,11 @@ to the innermost `blink.*` range open on the thread that launched it.
   blink.scatter_tri_verts  refine's vertex scatter, in the backward
                            (launched on autograd's device thread)
 
-`count(name, value)` adds to a counter; `counts()` reads the sums (one
-device sync) and `reset_counts()` clears them. Counters:
+`count(name, value)` adds to a counter; `count_later(names, fn)` adds
+fn()'s values to counters `names` when they are next read, so that work
+which must not run inside the recording (a counting pass) runs after it;
+`counts()` reads the sums (one device sync) and `reset_counts()` clears
+them. Counters:
 
   walk_lanes.closest, walk_lanes.anyhit  lanes each walk call is launched
                                          over
@@ -44,9 +47,20 @@ device sync) and `reset_counts()` clears them. Counters:
                                          hashes: in csrc/sampler_hash.cu
                                          (a CUDA key) or in plain torch
                                          (a CPU key)
+  tlas_pops, blas_pops, tri_tests, blas_entries (.closest, .anyhit)
+                                         the tlas backend's walk calls:
+                                         TLAS node pops, BLAS node pops,
+                                         triangle tests and BLAS walks
+                                         begun (count_later: the kernel's
+                                         counting build, or the plain
+                                         walk's counts on the CPU, over a
+                                         sample of each call's lanes kept
+                                         while recording, scaled to the
+                                         call's lanes)
 
 A masked walk call counts its live lanes on the device (two or three
-launches: the mask, its cast and the sum), only while a profiler records.
+launches: the mask, its cast and the sum), and a tlas walk call copies its
+sample of lanes (one launch), only while a profiler records.
 """
 from __future__ import annotations
 
@@ -63,6 +77,8 @@ _OFF = contextlib.nullcontext()
 
 #: Counter name -> values recorded (Python ints and 0-d device tensors).
 _counts: dict[str, list] = {}
+#: (counter names, fn) whose values counts() adds before it sums.
+_later: list = []
 
 
 @contextlib.contextmanager
@@ -97,9 +113,22 @@ def count(name: str, value) -> None:
         _counts.setdefault(name, []).append(value)
 
 
+def count_later(names, fn) -> None:
+    """While a profiler records, have the next counts() call fn() and add
+    its values (one a name, as `count` takes them) to the counters
+    `names`."""
+    if recording():
+        _later.append((tuple(names), fn))
+
+
 def counts() -> dict[str, int]:
-    """Each counter's sum since the last reset_counts(); the tensors among
-    the values are read in one copy to the host."""
+    """Each counter's sum since the last reset_counts(), count_later's
+    values taken first; the tensors among the values are read in one copy
+    to the host."""
+    while _later:
+        names, fn = _later.pop(0)
+        for name, v in zip(names, fn(), strict=True):
+            _counts.setdefault(name, []).append(v)
     out = {}
     tensors = []  # (name, 0-d tensor)
     for name, values in _counts.items():
@@ -119,6 +148,7 @@ def counts() -> dict[str, int]:
 
 def reset_counts() -> None:
     _counts.clear()
+    _later.clear()
 
 
 @contextlib.contextmanager

@@ -140,9 +140,11 @@ def tile_pixel_ids_spp(h: int, w: int, sb: int, device=None):
 def _spp_block(cfg: RenderConfig, backend, tile) -> int:
     """Samples a pixel packed into one batch: spp_block (4, 16 or 64) when
     it divides spp, else 4 when that does, on the tiled wide backend with
-    32 | H and 32 | W; else 1 (the per-sample loop)."""
+    32 | H and 32 | W; else 1 (the per-sample loop). The tlas backend
+    packs as wide does, so that its frames differ from wide's by the walk
+    alone."""
     h, w, spp = cfg.height, cfg.width, cfg.spp
-    if backend.name != "wide" or tile is None or h % 32 or w % 32:
+    if backend.name not in ("wide", "tlas") or tile is None or h % 32 or w % 32:
         return 1
     want = cfg.spp_block or 4
     if want in (4, 16, 64) and spp % want == 0:

@@ -76,6 +76,21 @@ class Lights(_Tensors):
 
 
 @dataclasses.dataclass(frozen=True)
+class Instances(_Tensors):
+    """The scene's triangles in two-level form, for the `tlas` backend:
+    objects in object space, each placed by instances. Instance i's
+    triangles are the scene's global triangle ids [tri_offset[i],
+    tri_offset[i] + its object's count), tri_offset the running sum of the
+    instances' counts in instance order (bvh.tlas)."""
+
+    verts: torch.Tensor  # (V, 3) f32 every object's vertices, concatenated
+    idx: torch.Tensor  # (T, 3) i32 every object's triangles, ids into verts
+    tri_start: torch.Tensor  # (B + 1,) i32 object b: idx[tri_start[b]:tri_start[b + 1]]
+    obj_of_inst: torch.Tensor  # (I,) i32 each instance's object
+    o2w: torch.Tensor  # (I, 3, 4) f32 each instance's object -> world affine
+
+
+@dataclasses.dataclass(frozen=True)
 class Scene(_Tensors):
     spheres: Spheres
     triangles: Triangles
@@ -87,6 +102,8 @@ class Scene(_Tensors):
     #: merge_params): a backend's precomputed shade table then has stale
     #: geometry lanes, and refine gathers vertices live.
     geom_dirty: bool = False
+    #: The two-level form of the triangles (the `tlas` backend), if given.
+    instances: Instances | None = None
 
     @property
     def device(self) -> torch.device:
@@ -211,18 +228,29 @@ _GROUPS = {
 }
 
 
+def _tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    return torch.from_numpy(a.astype(np.int32 if a.dtype.kind in "iu" else np.float32))
+
+
+def instances_from_numpy(g: Mapping[str, Any]) -> Instances:
+    """The `instances` group: {"objects": {"verts", "idx", "tri_start"},
+    "obj_of_inst", "o2w"}; `tri_start` may be left out for one object."""
+    obj = g["objects"]
+    idx = np.asarray(obj["idx"])
+    start = obj.get("tri_start", [0, idx.shape[0]])
+    return Instances(verts=_tensor(obj["verts"]), idx=_tensor(idx), tri_start=_tensor(start),
+                     obj_of_inst=_tensor(g["obj_of_inst"]), o2w=_tensor(g["o2w"]))
+
+
 def scene_from_numpy(d: Mapping[str, Any]) -> Scene:
     """Carry a scene over from numpy: `d` maps each `Scene` field to a dict
     of numpy arrays by field name (`textures` to one array), as a `blink`
-    Scene's fields read back with `np.asarray`. Arrays are copied exactly,
-    with int32/float32 as the field types."""
+    Scene's fields read back with `np.asarray`, and may hold an `instances`
+    group (instances_from_numpy). Arrays are copied exactly, with
+    int32/float32 as the field types."""
     parts = {}
     for name, cls in _GROUPS.items():
-        fields = {}
-        for f in dataclasses.fields(cls):
-            a = np.asarray(d[name][f.name])
-            fields[f.name] = torch.from_numpy(
-                a.astype(np.int32 if a.dtype.kind in "iu" else np.float32)
-            )
-        parts[name] = cls(**fields)
-    return Scene(textures=_f32(d["textures"]), **parts)
+        parts[name] = cls(**{f.name: _tensor(d[name][f.name]) for f in dataclasses.fields(cls)})
+    inst = instances_from_numpy(d["instances"]) if "instances" in d else None
+    return Scene(textures=_f32(d["textures"]), instances=inst, **parts)
